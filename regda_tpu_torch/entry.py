@@ -1,11 +1,17 @@
-"""Entry points of the port: the served eval forward and a few stage-2 steps.
+"""Entry points of the port: the served eval forward, a few stage-2 steps,
+and SAM's encode and point-prompt decode.
 
-`entry(device)` is the counterpart of `__graft_entry__.entry()`: the
-DeepLabv2 / ResNet-101 (C = 6) eval forward with seeded random weights, and
-example arguments. `stage2_steps(n, device)` builds a stage-2 train state
-and runs `n` steps of `train/steps.py:make_stage2_step` on seeded synthetic
-batches, with LRH over ragged region maps, the path whose histogram is the
-CUDA kernel.
+`entry()` is the counterpart of `__graft_entry__.entry()`: the DeepLabv2 /
+ResNet-101 (C = 6) eval forward with seeded random weights, and example
+arguments. `stage2_steps(n)` builds a stage-2 train state and runs `n` steps
+of `train/steps.py:make_stage2_step` on seeded synthetic batches, with LRH
+over ragged region maps, the path whose histogram is a CUDA kernel.
+`sam_entry()` builds SAM with seeded random weights and example crops and
+point prompts; its encoder runs the LayerNorm and attention CUDA kernels.
+
+Every entry point runs on the card (`device='cuda'`) unless the caller names
+another device, and raises where no card is found: nothing moves to the CPU
+on its own.
 """
 
 from __future__ import annotations
@@ -16,13 +22,24 @@ import numpy as np
 import torch
 
 from regda_tpu_torch.models import build_deeplabv2
+from regda_tpu_torch.models.sam.auto import Sam, build_point_grid
 from regda_tpu_torch.train import create_train_state, make_optimizer
 from regda_tpu_torch.train.steps import make_stage2_step
 
 
-def entry(device, *, batch: int = 1, dtype: torch.dtype = torch.float32):
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for device='{device}'; the port's entry points run "
+            f"on the card unless the caller asks for another device (device='cpu')")
+    return device
+
+
+def entry(device='cuda', *, batch: int = 1, dtype: torch.dtype = torch.float32):
     """-> (forward, example_args): forward(image (B, 512, 512, 3)) returns
     (B, 512, 512, 6) probabilities, computed in `dtype` with float32 weights."""
+    device = _device(device)
     model = build_deeplabv2('ResNet101', num_classes=6, dtype=dtype,
                             generator=torch.Generator().manual_seed(0))
     model = model.to(device, memory_format=torch.channels_last).eval()
@@ -60,11 +77,11 @@ def synthetic_stage2_batch(rng: np.random.Generator, batch: int, size: int,
     return images_s, label_s, images_t, regs
 
 
-def stage2_state(device, *, resnet: str = 'ResNet101', seed: int = 0):
+def stage2_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0):
     """A stage-2 train state from seeded random weights, with seeded normal
     prototypes standing in for a prototype checkpoint, and the stage-2 step
     (align_domain, refine_label and sam_refine on)."""
-    device = torch.device(device)
+    device = _device(device)
     model = build_deeplabv2(resnet, num_classes=6,
                             generator=torch.Generator().manual_seed(seed))
     model = model.to(device, memory_format=torch.channels_last)
@@ -78,12 +95,12 @@ def stage2_state(device, *, resnet: str = 'ResNet101', seed: int = 0):
     return state, step
 
 
-def stage2_steps(n: int, device):
+def stage2_steps(n: int, device='cuda'):
     """Run `n` f32 stage-2 steps of ResNet-101 (see `stage2_state`) at the
     recipe's shape, 8 crops of 512^2 per domain (configs/st/regda/
     _experiment.py:35), on seeded synthetic batches. Returns (state, metrics
     per step, seconds per step); each step's time ends in a synchronize."""
-    device = torch.device(device)
+    device = _device(device)
     state, step = stage2_state(device)
     rng = np.random.default_rng(1)
     metrics, seconds = [], []
@@ -97,3 +114,36 @@ def stage2_steps(n: int, device):
             torch.cuda.synchronize(device)
         seconds.append(time.perf_counter() - t0)
     return state, metrics, seconds
+
+
+def sam_entry(device='cuda', *, vit_config: str = 'vit_b', img_size: int = 1024,
+              crops: int = 5, points: int = 64,
+              dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+    """-> (model, (images, points, labels)): SAM in eval mode with seeded
+    random weights and float32 parameters, computing in `dtype`, and example
+    arguments: `images` (crops, img_size, img_size, 3) normal noise standing
+    in for preprocessed crops (one tile's 5-crop pyramid by default);
+    `points` (points, 1, 2), the first prompts of the 32 x 32 everything-mode
+    grid in input-image pixels; `labels` (points, 1) ones (foreground).
+    `model.encode(images)` then `model.decode_points(emb[:1], points, labels)`
+    is the path of `Sam.forward`.
+
+    The position tables (`pos_embed`, `rel_pos_h`, `rel_pos_w`), which a
+    fresh model holds as zeros, are drawn too (std 0.02), so that the bias
+    path of the attention kernel carries values."""
+    device = _device(device)
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        model = Sam(vit_config=vit_config, img_size=img_size, dtype=dtype)
+        with torch.no_grad():
+            for name, param in model.named_parameters():
+                if name.endswith(('pos_embed', 'rel_pos_h', 'rel_pos_w')):
+                    param.normal_(std=0.02)
+    model = model.to(device).eval()
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(crops, img_size, img_size, 3)).astype(np.float32)
+    grid = build_point_grid(32)[:points] * img_size
+    labels = np.ones((points, 1), np.float32)
+    args = (images, grid[:, None, :], labels)
+    return model, tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                        for a in args)

@@ -1,0 +1,5 @@
+"""SAM (segment-anything) in the port: counterpart of regda_tpu/models/sam/."""
+
+from regda_tpu_torch.models.sam.auto import Sam, build_point_grid
+
+__all__ = ['Sam', 'build_point_grid']

@@ -17,6 +17,8 @@ _FORWARD = r'''
 import sys
 import torch
 import regda_tpu_torch.entry, regda_tpu_torch.ops.lrh, regda_tpu_torch.utils.convert
+import regda_tpu_torch.models.sam.convert, regda_tpu_torch.ops.kernels.layernorm
+import regda_tpu_torch.ops.kernels.rel_attention
 from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.ops.lrh import homogenize
 model = build_deeplabv2('resnet18', 6, generator=torch.Generator().manual_seed(0))
@@ -25,6 +27,11 @@ with torch.no_grad():
 assert probs.shape == (1, 32, 32, 6)
 labels = homogenize(torch.zeros(1, 32, 32, dtype=torch.int32),
                     torch.ones(1, 32, 32, dtype=torch.int32))
+sam, (images, points, pt_labels) = regda_tpu_torch.entry.sam_entry(
+    'cpu', vit_config='vit_t', img_size=64, crops=1, points=2)
+with torch.no_grad():
+    masks, iou = sam(images, points, pt_labels)
+assert masks.shape == (2, 3, 16, 16) and iou.shape == (2, 3)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'regda_tpu'))
 print('LOADED', bad)
