@@ -10,17 +10,23 @@ Phases (any failure raises, and the exit code is non-zero):
               its plain PyTorch version on the card at the main path's shapes
               and at ragged inputs: the segment histogram exactly; LayerNorm
               and rel-pos attention in f32 (rtol/atol 2e-5 and 2e-4, the JAX
-              tests' own) and in bf16 (LN_BF16_TOL, ATTN_BF16_TOL below).
+              tests' own) and in bf16 (LN_BF16_TOL, ATTN_BF16_TOL below);
+              the fused mask head and the two-way transformer in f32
+              (rtol/atol 2e-4) and in bf16 (UPSCALE_BF16_STEPS,
+              TWOWAY_BF16_STEPS below), gated prompts exactly zero.
               Each is timed with CUDA events beside its plain version, its
               bound (bytes over 3.35 TB/s or operations over the peak rate,
-              whichever is larger) and one library call as a yardstick that
-              the port itself never makes.
+              whichever is larger) and, where one PyTorch call computes the
+              same function, that call as a yardstick that the port itself
+              never makes.
      check    small-size agreement of the card with the CPU: the ResNet-101
               eval forward (f32, rtol/atol 1e-4) and one resnet18 stage-2
               step with dropout off (losses rtol 1e-4), `homogenize` at
               8x512^2, kernel on the card against plain on the CPU (equal),
-              the SAM encoder at ViT-B width and depth on a 256^2 image and a
-              whole `Sam.forward` at vit_t (f32, SAM_CHECK_TOL below).
+              the SAM encoder at ViT-B width and depth on a 256^2 image, a
+              whole `Sam.forward` at vit_t, and `Sam.decode_points_fast` at
+              vit_t against the same call on the CPU and against
+              `Sam.decode_points` on the card (f32, SAM_CHECK_TOL below).
   2. serve    ResNet-101 DeepLabv2 (C = 6) eval forward on 16 tiles of 512^2,
               bf16 compute with f32 weights: shape, finiteness, probabilities
               summing to 1 within 1e-2, tiles/s.
@@ -34,8 +40,18 @@ Phases (any failure raises, and the exit code is non-zero):
               Shapes, finiteness, exactly 24 LayerNorm and 12 attention
               kernel launches in the encode, ms/encode, crops/s, ms/decode
               chunk, peak memory, and a torch.profiler split of one encode.
-Launch counts are zeroed just before phases 2-3 and again just before phase
-4, and read just after each.
+              Then the fast decode as everything-mode calls it,
+              `decode_points_fast(emb[:1], points, labels, mask_dtype=bf16,
+              blocked_masks=True)`, on 64 and on 256 grid prompts: shapes,
+              finiteness, exactly one two-way and one mask-head call per
+              chunk; after the counts are read, the fast chunk against the
+              stock one in bf16 (FAST_VS_STOCK_BF16_STEPS), the IoU gate at
+              the median IoU (gated masks equal or exactly zero), ms per
+              chunk of both paths at both sizes, peak memory, and a
+              torch.profiler split of one fast chunk with its idle share.
+Launch counts are zeroed just before phases 2-3, again just before the
+encode of phase 4 and again just before its fast decode, and read just after
+each.
 TF32 is off in every phase (`torch.backends.cudnn.allow_tf32` and
 `torch.backends.cuda.matmul.allow_tf32` both False): phases 2
 and 4 compute in bf16, and the others hold float32 as float32, as the JAX
@@ -89,6 +105,15 @@ LN_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
 ATTN_BF16_TOL = dict(rtol=2 ** -6, atol=2 ** -7)
 # f32 card vs CPU through 12 transformer blocks: different summation orders
 SAM_CHECK_TOL = dict(rtol=1e-3, atol=1e-3)
+# the fused mask head and the two-way kernels in bf16, in steps of 2^-8 times
+# the largest magnitude of the plain version's result: kernel and plain round
+# the same chain at the same places but sum in another order, so a value may
+# land one step off at each of the chain's roundings
+UPSCALE_BF16_STEPS = 4
+TWOWAY_BF16_STEPS = 8
+# the fast decode against the stock decode, both in bf16 at full width: two
+# computations of one function that round at different places throughout
+FAST_VS_STOCK_BF16_STEPS = 16
 
 
 def bound_ms(nbytes: float, flops: float, rate: str) -> tuple[float, str]:
@@ -101,7 +126,7 @@ def build_kernels() -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
     from regda_tpu_torch.ops.kernels import _build
-    names = ('segment_hist', 'layernorm', 'rel_attention')
+    names = ('segment_hist', 'layernorm', 'rel_attention', 'upscale', 'two_way')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load_library, names))
@@ -355,6 +380,206 @@ def phase_attention(device) -> dict:
             'max_abs_err': max_err, **glob, 'windowed': win}
 
 
+def _within_bf16_steps(what: str, got, want, steps: float) -> float:
+    """max |got - want| <= steps * 2^-8 * max |want|; returns the error."""
+    import torch
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    limit = steps * 2.0 ** -8 * float(want.abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= limit):
+        raise AssertionError(f'{what}: max abs err {err} > {limit} ({steps} bf16 steps '
+                             f'of max |value| {float(want.abs().max())})')
+    return err
+
+
+def _upscale_inputs(rng, device, dtype, b, h, w, m):
+    """src like a LayerNorm's output, weights at the scale that keeps every
+    stage of the chain at unit size."""
+    import numpy as np
+    import torch
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+    return (f(b, h, w, 256).to(dtype), f(b, m, 32).to(dtype), f(256, 256, scale=1 / 16).to(dtype),
+            f(1, 256, scale=0.1), 1 + f(1, 64, scale=0.1), f(1, 64, scale=0.1),
+            f(64, 128, scale=1 / 8).to(dtype), f(1, 128, scale=0.1))
+
+
+def phase_upscale(device) -> dict:
+    """The fused mask-head kernels against their plain version."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.ops.kernels import upscale as up
+
+    rng = np.random.default_rng(12)
+    # (B, H, W, M, blocked, out dtype or None for the compute dtype, active):
+    # the main path's chunks of 64 and of 256 prompts (blocked, 3 masks,
+    # output in the compute dtype), then ragged ones: one prompt, an 8 x 8 grid (half a
+    # tile), 1 and 4 masks, interleaved output, float32 output from bfloat16,
+    # and the gate with some, all and no prompts off
+    cases = [(64, 64, 64, 3, True, None, None), (256, 64, 64, 3, True, None, None),
+             (1, 64, 64, 3, False, None, None),
+             (3, 8, 8, 1, True, None, None), (2, 8, 8, 4, False, torch.float32, None),
+             (5, 12, 12, 3, True, torch.bfloat16, 'some'), (5, 12, 12, 3, False, None, 'some'),
+             (3, 8, 8, 3, True, None, 'all'), (3, 8, 8, 3, True, None, 'none')]
+    max_err = 0.0
+    for b, h, w, m, blocked, out_dtype, gate in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _upscale_inputs(rng, device, dtype, b, h, w, m)
+            odt = out_dtype or dtype
+            active = None
+            if gate is not None:
+                active = torch.from_numpy(rng.random(b) < 0.5).to(device)
+                active[0], active[1] = True, False
+                if gate != 'some':
+                    active[:] = gate == 'none'
+            what = (f'upscale B={b} {h}x{w} M={m} {"blocked" if blocked else "interleaved"} '
+                    f'{str(dtype)[6:]}->{str(odt)[6:]} gate={gate}')
+            got = up.upscale_hyper_masks(*args, out_dtype=odt, active=active, blocked=blocked)
+            want = up.upscale_plain(*args, odt, active, blocked)
+            torch.cuda.synchronize()
+            if got.dtype != odt or got.shape != want.shape:
+                raise AssertionError(f'{what}: got {got.dtype} {tuple(got.shape)}')
+            if dtype == torch.float32 and odt == torch.float32:
+                err = _assert_close(what, got, want, rtol=2e-4, atol=2e-4)
+            else:
+                err = _within_bf16_steps(what, got, want, UPSCALE_BF16_STEPS)
+            if active is not None and bool((got[~active] != 0).any()):
+                raise AssertionError(f'{what}: a gated prompt is not exactly zero')
+            max_err = max(max_err, err)
+            print(f'[kernel] {what}: max abs err {err:.3g} '
+                  f'(max |value| {float(want.float().abs().max()):.3g})')
+            del args, got, want
+            torch.cuda.empty_cache()
+    try:
+        up.upscale_hyper_masks(*_upscale_inputs(rng, device, torch.float32, 1, 4, 4, 3)[:2],
+                               *_upscale_inputs(rng, device, torch.bfloat16, 1, 4, 4, 3)[2:])
+    except ValueError:
+        print('[kernel] upscale: a src of another dtype than k1 raises')
+    else:
+        raise AssertionError('upscale took a float32 src with bfloat16 weights')
+
+    # time at the main path's shapes: 64 and 256 prompts, bf16 in and out,
+    # blocked
+    def times(b, hw=4096, m=3):
+        args = _upscale_inputs(rng, device, torch.bfloat16, b, 64, 64, m)
+        ms = cuda_ms(lambda: up.upscale_hyper_masks(*args, out_dtype=torch.bfloat16,
+                                                    blocked=True), 20)
+        plain_ms = cuda_ms(lambda: up.upscale_plain(*args, torch.bfloat16, None, True), 3,
+                           warmup=1)
+        # src and hyper_in read once, the weights once, the masks written
+        # once; the three products
+        nbytes = 2 * (b * hw * 256 + b * m * 32 + 256 * 256 + 64 * 128 + b * m * 16 * hw)
+        bound, by = bound_ms(nbytes, 2.0 * b * hw * (256 * 256 + 4 * 64 * 128 + 16 * 32 * m),
+                             'bf16')
+        print(f'[kernel] upscale bf16 B={b} HW={hw} M={m} blocked: kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); no single PyTorch call '
+              f'computes it (CUDA events)')
+        torch.cuda.empty_cache()
+        return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
+                'library_ms': None}
+    return {'name': 'upscale_hyper_masks', 'route': 'cuda',
+            'source': 'regda_tpu_torch/csrc/upscale.cu',
+            'replaces': 'regda_tpu/models/sam/pallas_upscale.py:309',
+            'max_abs_err': max_err, **times(64), 'prompts_256': times(256)}
+
+
+def _two_way_operands(rng, device, dtype, b, t, n, mlp):
+    """Operands of `two_way_fused` at unit scale: n of the 8 token rows used,
+    weights drawn at 1 / sqrt(fan-in)."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.ops.kernels import two_way as tw
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+    acts = [f(b, 8, 128), f(b, 8, 128), f(b, 8, 256), f(b, 8, 256),
+            f(t, 256), f(t, 256), f(t, 128)]
+    for a in acts[:4]:
+        a[:, n:] = 0
+    maskb = torch.where(torch.arange(8, device=device) < n, 0.0, -1e9)[None].float()
+    w = {}
+    for key, shape in tw._weight_shapes(256, 128, mlp).items():
+        if len(shape) == 2:
+            w[key] = f(*shape, scale=shape[0] ** -0.5).to(dtype)
+        else:
+            w[key] = (1 + f(*shape, scale=0.1)) if key[0] == 'n' and key[-1] == 'w' \
+                else f(*shape, scale=0.1)
+    return (*(a.to(dtype) for a in acts), maskb, w)
+
+
+def phase_two_way(device) -> dict:
+    """The two-way transformer kernels against their plain version."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.ops.kernels import two_way as tw
+
+    rng = np.random.default_rng(13)
+    # (B, T, tokens used, MLP width): the main path's chunks of 64 and of 256
+    # prompts, then ragged ones: one prompt (every tile its own block), an 8 x 8 grid
+    # with 5 tokens, a T that is no multiple of any tile with all 8 tokens
+    cases = [(64, 4096, 7, 2048), (256, 4096, 7, 2048), (1, 4096, 7, 2048),
+             (3, 64, 5, 512), (2, 200, 8, 256)]
+    max_err = 0.0
+    for b, t, n, mlp in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            ops = _two_way_operands(rng, device, dtype, b, t, n, mlp)
+            what = f'two_way B={b} T={t} n={n} mlp={mlp} {str(dtype)[6:]}'
+            got = tw.two_way_fused(ops)
+            want = tw.two_way_plain(ops)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g_, w_ in zip(('keys2', 'queries'), got, want):
+                if g_.dtype != dtype or g_.shape != w_.shape:
+                    raise AssertionError(f'{what} {name}: got {g_.dtype} {tuple(g_.shape)}')
+                g_, w_ = (g_, w_) if name == 'keys2' else (g_[:, :n], w_[:, :n])
+                if dtype == torch.float32:
+                    errs.append(_assert_close(f'{what} {name}', g_, w_, rtol=2e-4, atol=2e-4))
+                else:
+                    errs.append(_within_bf16_steps(f'{what} {name}', g_, w_, TWOWAY_BF16_STEPS))
+            max_err = max(max_err, *errs)
+            print(f'[kernel] {what}: max abs err keys2 {errs[0]:.3g}, queries {errs[1]:.3g} '
+                  f'(max |value| {float(want[0].float().abs().max()):.3g}, '
+                  f'{float(want[1][:, :n].float().abs().max()):.3g})')
+            del ops, got, want
+            torch.cuda.empty_cache()
+    ops = _two_way_operands(rng, device, torch.float32, 1, 64, 7, 384)
+    try:
+        tw.two_way_fused(ops)
+    except ValueError:
+        print('[kernel] two_way: an MLP width the kernels are not built for raises')
+    else:
+        raise AssertionError('two_way took an MLP width of 384')
+
+    # time at the main path's shapes: 64 and 256 prompts, bf16
+    def times(b, t=4096, mlp=2048):
+        ops = _two_way_operands(rng, device, torch.bfloat16, b, t, 7, mlp)
+        ms = cuda_ms(lambda: tw.two_way_fused(ops), 20)
+        plain_ms = cuda_ms(lambda: tw.two_way_plain(ops), 3, warmup=1)
+        # read once: the shared keys0, pe and qimg0, the prompts' four token
+        # operands and the weights; written once: keys2 and the query state.
+        # Operations: per prompt and image token 8 x (16 x 8) logits of layer
+        # 0 and seven 64 x 256 products; per prompt the token work (two value
+        # projections of 64 x 256 x 16, two out-projections, the MLP, five
+        # projections to D, five folded operands of 256 x 64 x 16)
+        weights = sum(v.numel() * v.element_size() for v in ops[8].values())
+        nbytes = 2 * (t * (256 + 256 + 128) + b * 8 * (2 * 128 + 2 * 256) +
+                      b * t * 256 + b * 8 * 256) + weights
+        macs = b * (t * (8 * 16 * 8 + 7 * 64 * 256) + 7 * 64 * 256 * 16 +
+                    2 * 8 * 128 * 256 + 2 * 8 * 256 * mlp + 5 * 8 * 256 * 128)
+        bound, by = bound_ms(nbytes, 2.0 * macs, 'bf16')
+        print(f'[kernel] two_way bf16 B={b} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+              f'bound {bound:.4f} ms ({by}); no single PyTorch call computes it (CUDA events)')
+        del ops
+        torch.cuda.empty_cache()
+        return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
+                'library_ms': None}
+    return {'name': 'two_way_fused', 'route': 'cuda',
+            'source': 'regda_tpu_torch/csrc/two_way.cu',
+            'replaces': 'regda_tpu/models/sam/pallas_twoway.py:460',
+            'max_abs_err': max_err, **times(64), 'prompts_256': times(256)}
+
+
 def phase_check(device):
     """The card agrees with the CPU on small inputs."""
     import torch
@@ -430,6 +655,30 @@ def phase_check(device):
     for name, g, w in zip(('masks', 'iou'), got, want):
         err = _assert_close(f'vit_t Sam.forward {name} card vs CPU', g.cpu(), w, **SAM_CHECK_TOL)
         print(f'[check] vit_t Sam.forward 128^2 f32 {name} {tuple(w.shape)}, card vs CPU: '
+              f'max abs err {err:.3g}')
+
+    # the fast decode (two-way and mask-head kernels on the card) against the
+    # same call on the CPU (plain versions) and against the stock decode on
+    # the card, blocked masks through `masks_from_blocked`
+    from regda_tpu_torch.ops.kernels.upscale import masks_from_blocked
+    emb = torch.from_numpy(np.random.default_rng(8).normal(size=(1, 8, 8, 256))
+                           .astype(np.float32))
+    with torch.inference_mode():
+        model.cpu()
+        want = model.decode_points_fast(emb, points, labels, blocked_masks=True)
+        model.to(device)
+        dev_args = (emb.to(device), points.to(device), labels.to(device))
+        got = model.decode_points_fast(*dev_args, blocked_masks=True)
+        stock = model.decode_points(*dev_args)
+    for name, g, w in zip(('masks', 'iou'), got, want):
+        err = _assert_close(f'vit_t decode_points_fast {name} card vs CPU', g.cpu(), w,
+                            **SAM_CHECK_TOL)
+        print(f'[check] vit_t decode_points_fast f32 {name} {tuple(w.shape)}, card vs CPU: '
+              f'max abs err {err:.3g}')
+    for name, g, w in zip(('masks', 'iou'), (masks_from_blocked(got[0], 8, 8), got[1]), stock):
+        err = _assert_close(f'vit_t decode_points_fast vs decode_points {name}', g, w,
+                            **SAM_CHECK_TOL)
+        print(f'[check] vit_t decode_points_fast vs decode_points on the card, f32 {name}: '
               f'max abs err {err:.3g}')
 
 
@@ -537,6 +786,140 @@ def sam_timings(model, images, points, labels, emb, first_s) -> None:
     print(f'[sam] one encode under torch.profiler: {split}')
 
 
+def _grid_prompts(device, count: int, img_size: int = 1024):
+    """The first `count` prompts of the 32 x 32 everything-mode grid."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.models.sam.auto import build_point_grid
+    grid = np.ascontiguousarray(build_point_grid(32)[:count] * img_size, np.float32)
+    return (torch.from_numpy(grid[:, None, :]).to(device),
+            torch.ones((count, 1), dtype=torch.float32, device=device))
+
+
+def phase_sam_fast(device, model, emb):
+    """One fast decode chunk at 64 and at 256 prompts, as everything-mode
+    calls it (bf16 masks, blocked), checked against the stock decode of the
+    same prompts; then the IoU gate. Two wrapper calls of each kernel."""
+    import torch
+
+    fast = dict(mask_dtype=torch.bfloat16, blocked_masks=True)
+    for count in (64, 256):
+        points, labels = _grid_prompts(device, count)
+        with torch.inference_mode():
+            masks, iou = model.decode_points_fast(emb[:1], points, labels, **fast)
+            torch.cuda.synchronize()
+        if tuple(masks.shape) != (count, 48, 4096) or masks.dtype != torch.bfloat16:
+            raise AssertionError(f'fast masks {masks.dtype} {tuple(masks.shape)}')
+        if tuple(iou.shape) != (count, 3) or iou.dtype != torch.float32:
+            raise AssertionError(f'fast iou {iou.dtype} {tuple(iou.shape)}')
+        if not bool(torch.isfinite(masks.float()).all() and torch.isfinite(iou).all()):
+            raise AssertionError('fast decode output is not finite')
+    return masks, iou
+
+
+def sam_fast_checks_and_timings(device, model, emb, tw_record: dict) -> None:
+    """After the launch counts are read: the fast chunk against the stock one
+    in bf16, the gate, ms per chunk of both paths, and a profile. The profile
+    must show as many two-way kernels in one chunk as the C entry counted for
+    each call of the main path (`tw_record`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from regda_tpu_torch.ops.kernels.upscale import masks_from_blocked
+
+    fast = dict(mask_dtype=torch.bfloat16, blocked_masks=True)
+    points, labels = _grid_prompts(device, 64)
+    with torch.inference_mode():
+        masks, iou = model.decode_points_fast(emb[:1], points, labels, **fast)
+        stock_masks, stock_iou = model.decode_points(emb[:1], points, labels)
+        # both paths compute in bf16 and round at different places
+        err_m = _within_bf16_steps('fast vs stock masks, bf16',
+                                   masks_from_blocked(masks, 64, 64), stock_masks,
+                                   FAST_VS_STOCK_BF16_STEPS)
+        err_i = _within_bf16_steps('fast vs stock iou, bf16', iou, stock_iou,
+                                   FAST_VS_STOCK_BF16_STEPS)
+        print(f'[sam] decode_points_fast vs decode_points, 64 prompts bf16: masks max abs err '
+              f'{err_m:.3g} (max |value| {float(stock_masks.abs().max()):.3g}), iou {err_i:.3g} '
+              f'(max |value| {float(stock_iou.abs().max()):.3g})')
+        # the gate at the median of the prompts' best IoU: about half pass
+        thresh = float(iou.max(dim=1).values.median())
+        active = (iou > thresh).any(dim=1)
+        gated, gated_iou = model.decode_points_fast(emb[:1], points, labels,
+                                                    iou_gate_thresh=thresh, **fast)
+        torch.cuda.synchronize()
+        if not (0 < int(active.sum()) < 64):
+            raise AssertionError(f'the gate passed {int(active.sum())} of 64 prompts')
+        if not (torch.equal(gated_iou, iou) and torch.equal(gated[active], masks[active])
+                and bool((gated[~active] == 0).all())):
+            raise AssertionError('gated masks differ from the ungated ones on active '
+                                 'prompts or are not zero on the rest')
+        print(f'[sam] IoU gate at {thresh:.4f}: {int(active.sum())} of 64 prompts active, '
+              f'their masks equal the ungated ones, the rest are exactly zero')
+
+        for count in (64, 256):
+            points, labels = _grid_prompts(device, count)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fast_ms = cuda_ms(lambda: model.decode_points_fast(emb[:1], points, labels, **fast),
+                              iters=10, warmup=2)
+            fast_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            stock_ms = cuda_ms(lambda: model.decode_points(emb[:1], points, labels),
+                               iters=5, warmup=1)
+            stock_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f'[sam] decode chunk of {count} prompts, bf16: decode_points_fast '
+                  f'{fast_ms:.3f} ms (peak {fast_peak:.2f} GiB), decode_points {stock_ms:.3f} ms '
+                  f'(peak {stock_peak:.2f} GiB)')
+
+        points, labels = _grid_prompts(device, 64)
+        torch.cuda.synchronize()
+        for _ in range(2):   # the first profile pays for starting the tracer
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.decode_points_fast(emb[:1], points, labels, **fast)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {'two_way': 0.0, 'upscale': 0.0, 'gemm': 0.0, 'other': 0.0}
+    detail = {}
+    device_events = two_way_events = 0
+    first_us, last_us = math.inf, -math.inf
+    for ev in prof.events():
+        if str(ev.device_type).endswith('CUDA'):
+            device_events += 1
+            first_us = min(first_us, ev.time_range.start)
+            last_us = max(last_us, ev.time_range.end)
+            name = ev.name.lower()
+            two_way = [t for t in ('prep_kernel', 'mid_kernel', 'final_kernel', 'rows_mma',
+                                   'cols_mma') if t in name]
+            kind = ('two_way' if two_way else 'upscale' if 'upscale_' in name else
+                    'gemm' if any(t in name for t in ('gemm', 'nvjet', 'cutlass', 'xmma'))
+                    else 'other')
+            kinds[kind] += ev.device_time / 1e3
+            if two_way:
+                two_way_events += 1
+                detail[two_way[0]] = detail.get(two_way[0], 0.0) + ev.device_time / 1e3
+    total = sum(kinds.values())
+    if total <= 0:
+        print('[sam] one fast chunk under torch.profiler: not measured (no device time)')
+        return
+    per_call, rest = divmod(tw_record['cuda_launches'], tw_record['launches'])
+    if rest or two_way_events != per_call:
+        raise AssertionError(f'the profile shows {two_way_events} two-way kernels in one chunk; '
+                             f'the C entry counted {tw_record["cuda_launches"]} in '
+                             f'{tw_record["launches"]} calls of the main path')
+    # busy and idle from this one profiled call: the device's span runs from
+    # its first kernel's start to its last kernel's end
+    span_ms = (last_us - first_us) / 1e3
+    print(f'[sam] one fast chunk of 64 under torch.profiler: {total:.3f} ms in '
+          f'{device_events} kernels and copies ({two_way_events} of them two_way\'s, as its '
+          f'C entry counted): '
+          + ', '.join(f'{k} {v:.3f} ms ({100 * v / total:.1f} %)' for k, v in kinds.items())
+          + f'; device idle {100 * (1 - total / span_ms):.1f} % of the {span_ms:.3f} ms from '
+          f'its first kernel\'s start to its last kernel\'s end (the profiled call took '
+          f'{wall_ms:.3f} ms of wall time); two_way by launch: '
+          + ', '.join(f'{k} {v:.3f}' for k, v in detail.items()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -547,6 +930,8 @@ def main() -> int:
     from regda_tpu_torch.ops.kernels import layernorm as ln
     from regda_tpu_torch.ops.kernels import rel_attention as ra
     from regda_tpu_torch.ops.kernels import segment_hist as sh
+    from regda_tpu_torch.ops.kernels import two_way as tw
+    from regda_tpu_torch.ops.kernels import upscale as up
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -558,6 +943,8 @@ def main() -> int:
     record = phase_kernel(device)
     ln_record = phase_layernorm(device)
     attn_record = phase_attention(device)
+    up_record = phase_upscale(device)
+    tw_record = phase_two_way(device)
     phase_check(device)
 
     sh.launches = 0
@@ -574,9 +961,19 @@ def main() -> int:
     if (ln.launches, ra.launches) != (24, 12):
         raise AssertionError(f'one ViT-B encode launched layernorm {ln.launches} times '
                              f'(expected 24) and rel_attention {ra.launches} (expected 12)')
+    model, emb = sam[0], sam[4]
+    tw.launches = tw.cuda_launches = up.launches = 0
+    phase_sam_fast(device, model, emb)
+    tw_record['launches'], up_record['launches'] = tw.launches, up.launches
+    # the kernels that the C entry queued in those calls, as it counted them
+    tw_record['cuda_launches'] = tw.cuda_launches
+    if (tw.launches, up.launches) != (2, 2):
+        raise AssertionError(f'two fast decode chunks called two_way {tw.launches} times and '
+                             f'upscale {up.launches} times (expected 1 + 1 per chunk)')
     sam_timings(*sam)   # these launch more, after the counts are read
+    sam_fast_checks_and_timings(device, model, emb, tw_record)
 
-    print(json.dumps({'kernels': [record, ln_record, attn_record]}))
+    print(json.dumps({'kernels': [record, ln_record, attn_record, tw_record, up_record]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

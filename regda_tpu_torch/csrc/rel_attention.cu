@@ -41,14 +41,12 @@
 // projection's output is taken as it is; the output goes out through strides
 // too, so the caller can have it in (B, N, H, D) order with no transpose.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kTile = 64;  // query rows per block and keys per tile
 
 struct Args {
@@ -72,37 +70,6 @@ __host__ __device__ inline int bias_stride(int k) {
   int words = (k + 1) / 2;
   if ((words & 1) == 0) ++words;
   return 2 * words;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
-                                            const void* smem_row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* smem_row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <int D>
@@ -453,41 +420,13 @@ size_t simt_smem_bytes() {
 
 // ---------------------------------------------------------------- launches
 
-// Shared memory above 48 KB needs an opt-in per kernel and device. It is made
-// when a launch needs more than any before it on that device did, not on
-// every launch; a size beyond the device's limit is refused by the opt-in
-// itself with cudaErrorInvalidValue.
-constexpr int kMaxDevices = 64;
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Args& a, int batch, int threads,
-                   size_t smem, cudaStream_t stream) {
-  static size_t opted_in[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > opted_in[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // leave no stale error for the caller's next check
-      return err;
-    }
-    opted_in[dev] = smem;
-  }
-  const dim3 grid((a.n + kTile - 1) / kTile, batch * a.heads);
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_for_type(const Args& a, int batch, int is_bf16,
                             cudaStream_t stream) {
-  return is_bf16 ? launch(rel_attn_mma_kernel<D>, a, batch, 128,
-                          mma_smem_bytes<D>(a.kh, a.kw), stream)
-                 : launch(rel_attn_simt_kernel<D>, a, batch, 256,
-                          simt_smem_bytes<D>(), stream);
+  const dim3 grid((a.n + kTile - 1) / kTile, batch * a.heads);
+  return is_bf16 ? launch<rel_attn_mma_kernel<D>>(grid, 128, mma_smem_bytes<D>(a.kh, a.kw),
+                                                  stream, a)
+                 : launch<rel_attn_simt_kernel<D>>(grid, 256, simt_smem_bytes<D>(), stream, a);
 }
 
 }  // namespace

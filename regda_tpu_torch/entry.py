@@ -7,7 +7,8 @@ arguments. `stage2_steps(n)` builds a stage-2 train state and runs `n` steps
 of `train/steps.py:make_stage2_step` on seeded synthetic batches, with LRH
 over ragged region maps, the path whose histogram is a CUDA kernel.
 `sam_entry()` builds SAM with seeded random weights and example crops and
-point prompts; its encoder runs the LayerNorm and attention CUDA kernels.
+point prompts; its encoder runs the LayerNorm and attention CUDA kernels and
+its fast decode (`Sam.decode_points_fast`) the two-way and mask-head ones.
 
 Every entry point runs on the card (`device='cuda'`) unless the caller names
 another device, and raises where no card is found: nothing moves to the CPU
@@ -126,7 +127,9 @@ def sam_entry(device='cuda', *, vit_config: str = 'vit_b', img_size: int = 1024,
     `points` (points, 1, 2), the first prompts of the 32 x 32 everything-mode
     grid in input-image pixels; `labels` (points, 1) ones (foreground).
     `model.encode(images)` then `model.decode_points(emb[:1], points, labels)`
-    is the path of `Sam.forward`.
+    is the path of `Sam.forward`; everything-mode decodes through
+    `model.decode_points_fast(emb[:1], points, labels, mask_dtype=torch.bfloat16,
+    blocked_masks=True)`, the fast path with the two-way and mask-head kernels.
 
     The position tables (`pos_embed`, `rel_pos_h`, `rel_pos_w`), which a
     fresh model holds as zeros, are drawn too (std 0.02), so that the bias

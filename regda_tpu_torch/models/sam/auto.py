@@ -1,6 +1,7 @@
 """The SAM bundle (counterpart of the head of regda_tpu/models/sam/auto.py):
-`Sam` with `encode`, `decode_points` and `forward`, and the point grid. The
-everything-mode generators that drive it are not ported yet.
+`Sam` with `encode`, `decode_points`, `decode_points_fast` and `forward`, and
+the point grid. The everything-mode generators that drive it are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -60,6 +61,24 @@ class Sam(nn.Module):
         # dense the decoder shares layer 0's key projections across prompts
         return self.mask_decoder(image_embedding, image_pe, sparse, dense[:1],
                                  multimask_output=True)
+
+    def decode_points_fast(self, image_embedding, points, labels,
+                           fused_upscale: bool = True, mask_dtype=None,
+                           iou_gate_thresh=None, blocked_masks: bool = False):
+        """`decode_points` through the fast decoder (same parameters, same
+        math; see fast_decoder.py): the prompt-resident two-way kernel and
+        the fused upscale + hypernetwork mask head. iou_gate_thresh is the
+        everything-mode IoU gate (failing prompts skip the mask head and
+        return zero masks); blocked_masks returns (P, 48, grid * grid)
+        candidate-major masks instead of (P, 3, 4 * grid, 4 * grid)."""
+        from regda_tpu_torch.models.sam.fast_decoder import mask_decoder_fast
+        sparse, dense = self.prompt_encoder(points, labels)
+        image_pe = self.prompt_encoder.get_dense_pe()
+        return mask_decoder_fast(self.mask_decoder, image_embedding, image_pe,
+                                 sparse, dense[:1], multimask_output=True,
+                                 fused_upscale=fused_upscale, mask_dtype=mask_dtype,
+                                 iou_gate_thresh=iou_gate_thresh,
+                                 blocked_masks=blocked_masks)
 
     def forward(self, image, points, labels):
         return self.decode_points(self.encode(image), points, labels)

@@ -2,6 +2,11 @@
 two-way transformer and the hypernetwork mask heads, all stock PyTorch. One
 call decodes a batch of point prompts against a single image embedding.
 
+This is the stock twin. Everything-mode takes `fast_decoder.py` instead
+(`Sam.decode_points_fast`): the same parameters and the same math through the
+fused two-way and mask-head kernels; this module is what that path is held
+against.
+
 Parameter names are segment-anything's. Maps are NHWC. `dtype` is the
 compute dtype of the `Linear`s and the two transposed convs; LayerNorms, the
 softmax and the IoU head compute in float32, as in the JAX package.

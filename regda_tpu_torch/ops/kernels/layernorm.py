@@ -82,6 +82,8 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError('layernorm: tensors must start on a 16-byte boundary')
     rows = x.numel() // c
+    if rows == 0:   # nothing to launch, and nothing counted
+        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.layernorm_launch(

@@ -111,6 +111,8 @@ def _launch(qkv: torch.Tensor, rh: torch.Tensor, rw: torch.Tensor, scale: float,
     rh = rh.to(qkv.dtype).contiguous()
     rw = rw.to(qkv.dtype).contiguous()
     out = torch.empty((b, n, h, d), dtype=qkv.dtype, device=qkv.device).permute(0, 2, 1, 3)
+    if out.numel() == 0:   # nothing to launch, and nothing counted
+        return out
     ob, oh, on, _ = out.stride()
     step = s3 * qkv.element_size()
     with torch.cuda.device(qkv.device):

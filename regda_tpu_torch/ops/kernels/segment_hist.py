@@ -97,6 +97,8 @@ def _launch(labels, regions, num_regions, num_classes) -> torch.Tensor:
                                  'on a 16-byte boundary')
         out = torch.zeros((b, num_regions, num_classes), dtype=torch.float32,
                           device=labels.device)
+        if b == 0 or n == 0:   # nothing to launch, and nothing counted
+            return out
         stream = torch.cuda.current_stream(labels.device).cuda_stream
         err = lib.segment_hist_labels_launch(
             labels.data_ptr(), regions.data_ptr(), out.data_ptr(), b, n,

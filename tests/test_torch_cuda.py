@@ -7,8 +7,9 @@ They skip on a machine without a CUDA device. On an H100 run them with
 (`--noconftest`: tests/conftest.py imports jax, which a GPU host may lack.)
 
 Each kernel is held against its plain PyTorch version on the same device
-(the histogram exactly; LayerNorm and attention within the tolerances of
-chip_smoke.py), and the wrapper's launch counter is checked.
+(the histogram exactly; LayerNorm, attention, the two-way transformer and the
+mask head within the tolerances of chip_smoke.py), and the wrapper's launch
+counter is checked.
 """
 
 import numpy as np
@@ -18,6 +19,8 @@ import torch
 from regda_tpu_torch.ops.kernels import layernorm as ln
 from regda_tpu_torch.ops.kernels import rel_attention as ra
 from regda_tpu_torch.ops.kernels import segment_hist as sh
+from regda_tpu_torch.ops.kernels import two_way as tw
+from regda_tpu_torch.ops.kernels import upscale as up
 from regda_tpu_torch.ops.lrh import homogenize
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +176,178 @@ def test_sam_encode_card_matches_cpu(device):
     assert (ln.launches - before[0], ra.launches - before[1]) == (4, 2)
     for g, w in zip(got, want):
         assert torch.allclose(g.cpu(), w, rtol=1e-3, atol=1e-3)
+
+
+# the two-way transformer and the mask head: float32 within 2e-4; bfloat16 in
+# steps of 2^-8 times the largest magnitude of the plain version's result
+# (kernel and plain round the same chain but sum in another order)
+def _assert_kernel_close(got, want, dtype, steps):
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert torch.allclose(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        assert float((got - want).abs().max()) <= steps * 2.0 ** -8 * float(want.abs().max())
+
+
+def _two_way_operands(rng, device, dtype, b, t, n, mlp):
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+    acts = [f(b, 8, 128), f(b, 8, 128), f(b, 8, 256), f(b, 8, 256),
+            f(t, 256), f(t, 256), f(t, 128)]
+    for a in acts[:4]:
+        a[:, n:] = 0
+    maskb = torch.where(torch.arange(8, device=device) < n, 0.0, -1e9)[None].float()
+    w = {k: f(*shape, scale=shape[0] ** -0.5 if len(shape) == 2 else 0.1)
+         for k, shape in tw._weight_shapes(256, 128, mlp).items()}
+    return (*(a.to(dtype) for a in acts), maskb, w)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,t,n,mlp', [(64, 4096, 7, 2048), (1, 4096, 7, 2048),
+                                       (3, 64, 5, 512), (2, 200, 8, 256), (300, 64, 7, 256)])
+def test_two_way_kernel_matches_plain(device, b, t, n, mlp, dtype):
+    ops = _two_way_operands(np.random.default_rng(b + t), device, dtype, b, t, n, mlp)
+    before = tw.launches
+    keys2, qout = tw.two_way_fused(ops)
+    assert tw.launches == before + 1
+    want_k, want_q = tw.two_way_plain(ops)
+    torch.cuda.synchronize()
+    assert keys2.dtype == qout.dtype == dtype
+    assert keys2.shape == want_k.shape and qout.shape == want_q.shape
+    _assert_kernel_close(keys2, want_k, dtype, 8)
+    _assert_kernel_close(qout[:, :n], want_q[:, :n], dtype, 8)
+
+
+def test_two_way_kernel_rejects_other_widths(device):
+    ops = _two_way_operands(np.random.default_rng(0), device, torch.float32, 1, 64, 7, 384)
+    with pytest.raises(ValueError):
+        tw.two_way_fused(ops)
+
+
+def _upscale_args(rng, device, dtype, b, h, w, m):
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+    return (f(b, h, w, 256).to(dtype), f(b, m, 32).to(dtype), f(256, 256, scale=1 / 16).to(dtype),
+            f(1, 256, scale=0.1), 1 + f(1, 64, scale=0.1), f(1, 64, scale=0.1),
+            f(64, 128, scale=1 / 8).to(dtype), f(1, 128, scale=0.1))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,h,w,m,blocked,gated', [
+    (64, 64, 64, 3, True, False), (1, 64, 64, 3, False, False), (3, 8, 8, 1, True, False),
+    (2, 8, 8, 4, False, False), (5, 12, 12, 3, True, True), (5, 12, 12, 3, False, True)])
+def test_upscale_kernel_matches_plain(device, b, h, w, m, blocked, gated, dtype):
+    rng = np.random.default_rng(b * h + m)
+    args = _upscale_args(rng, device, dtype, b, h, w, m)
+    active = None
+    if gated:
+        active = torch.from_numpy(rng.random(b) < 0.5).to(device)
+        active[0], active[1] = True, False
+    before = up.launches
+    got = up.upscale_hyper_masks(*args, out_dtype=dtype, active=active, blocked=blocked)
+    assert up.launches == before + 1
+    want = up.upscale_plain(*args, dtype, active, blocked)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_kernel_close(got, want, dtype, 4)
+    if gated:
+        assert bool((got[~active] == 0).all())
+
+
+def test_upscale_kernel_rejects_other_widths_and_dtypes(device):
+    rng = np.random.default_rng(0)
+    args = _upscale_args(rng, device, torch.float32, 1, 4, 4, 3)
+    with pytest.raises(ValueError):   # src of another dtype than the weights
+        up.upscale_hyper_masks(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError):   # five hypernetwork rows
+        up.upscale_hyper_masks(args[0], torch.zeros(1, 5, 32, device=device), *args[2:])
+    narrow = (torch.zeros(1, 4, 4, 64, device=device), torch.zeros(1, 3, 8, device=device),
+              torch.zeros(64, 64, device=device), torch.zeros(1, 64, device=device),
+              torch.zeros(1, 16, device=device), torch.zeros(1, 16, device=device),
+              torch.zeros(16, 32, device=device), torch.zeros(1, 32, device=device))
+    with pytest.raises(ValueError):   # C = 64
+        up.upscale_hyper_masks(*narrow)
+    # a refused launch leaves no error behind for the next one
+    out = up.upscale_hyper_masks(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+
+
+def test_empty_inputs_launch_nothing_and_are_not_counted(device):
+    rng = np.random.default_rng(2)
+    counts = lambda: (sh.launches, ln.launches, ra.launches, tw.launches,  # noqa: E731
+                      tw.cuda_launches, up.launches)
+    before = counts()
+    empty = torch.zeros((0, 64), dtype=torch.int32, device=device)
+    assert sh.segment_hist_labels(empty, empty, 4, 3).shape == (0, 4, 3)
+    x = torch.zeros((0, 768), device=device)
+    assert ln.layernorm(x, torch.ones(768, device=device),
+                        torch.zeros(768, device=device)).shape == (0, 768)
+    qkv = torch.zeros((3, 0, 12, 16, 64), device=device)
+    rel = torch.zeros((0, 12, 16, 4), device=device)
+    assert ra.rel_attention(qkv, rel, rel, scale=0.125, kh=4, kw=4).shape == (0, 12, 16, 64)
+    keys2, qout = tw.two_way_fused(_two_way_operands(rng, device, torch.float32, 0, 64, 7, 256))
+    assert keys2.shape == (0, 64, 256) and qout.shape == (0, 8, 256)
+    with pytest.raises(ValueError, match='image token'):
+        tw.two_way_fused(_two_way_operands(rng, device, torch.float32, 2, 0, 7, 256))
+    args = _upscale_args(rng, device, torch.float32, 0, 4, 4, 3)
+    assert up.upscale_hyper_masks(*args).shape == (0, 3, 16, 16)
+    assert up.upscale_hyper_masks(*args, blocked=True).shape == (0, 48, 16)
+    assert counts() == before
+
+
+def test_two_way_counts_the_kernels_it_queues(device):
+    rng = np.random.default_rng(3)
+    per_call = set()
+    for dtype, b, t, mlp in ((torch.float32, 2, 200, 256), (torch.bfloat16, 3, 64, 512),
+                             (torch.bfloat16, 64, 4096, 2048)):
+        before = tw.launches, tw.cuda_launches
+        tw.two_way_fused(_two_way_operands(rng, device, dtype, b, t, 7, mlp))
+        assert tw.launches == before[0] + 1
+        per_call.add(tw.cuda_launches - before[1])
+    torch.cuda.synchronize()
+    assert len(per_call) == 1 and per_call.pop() > 0   # the chain is the same for all sizes
+
+
+def test_fast_kernel_gradients_go_through_the_plain_versions(device):
+    rng = np.random.default_rng(1)
+    args = _upscale_args(rng, device, torch.float32, 1, 4, 4, 3)
+    grads = []
+    for fn in (up.upscale_hyper_masks, up.upscale_plain):
+        leaves = [t.clone().requires_grad_() for t in args]
+        (fn(*leaves) ** 2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+    ops = _two_way_operands(rng, device, torch.float32, 2, 64, 7, 256)
+    grads = []
+    for fn in (tw.two_way_fused, tw.two_way_plain):
+        leaves = [t.clone().requires_grad_() for t in ops[:7]]
+        keys2, qout = fn((*leaves, *ops[7:]))
+        ((keys2 ** 2).sum() + (qout[:, :7] ** 2).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_sam_fast_decode_card_matches_cpu_and_stock(device):
+    """vit_t SAM in f32: the fast decode's kernels on the card against the
+    plain versions on the CPU and against the stock decode on the card."""
+    from regda_tpu_torch.entry import sam_entry
+    model, (_, points, labels) = sam_entry(
+        'cpu', vit_config='vit_t', img_size=128, crops=1, points=5, dtype=torch.float32)
+    emb = torch.from_numpy(np.random.default_rng(2).normal(size=(1, 8, 8, 256))
+                           .astype(np.float32))
+    with torch.inference_mode():
+        want = model.decode_points_fast(emb, points, labels, blocked_masks=True)
+        model.to(device)
+        args = (emb.to(device), points.to(device), labels.to(device))
+        before = tw.launches, up.launches
+        got = model.decode_points_fast(*args, blocked_masks=True)
+        assert (tw.launches - before[0], up.launches - before[1]) == (1, 1)
+        stock = model.decode_points(*args)
+    for g, w in zip(got, want):
+        assert torch.allclose(g.cpu(), w, rtol=1e-3, atol=1e-3)
+    assert torch.allclose(up.masks_from_blocked(got[0], 8, 8), stock[0], rtol=1e-3, atol=1e-3)
+    assert torch.allclose(got[1], stock[1], rtol=1e-3, atol=1e-3)
