@@ -13,7 +13,13 @@ Phases (any failure raises, and the exit code is non-zero):
               tests' own) and in bf16 (LN_BF16_TOL, ATTN_BF16_TOL below);
               the fused mask head and the two-way transformer in f32
               (rtol/atol 2e-4) and in bf16 (UPSCALE_BF16_STEPS,
-              TWOWAY_BF16_STEPS below), gated prompts exactly zero.
+              TWOWAY_BF16_STEPS below), gated prompts exactly zero; the
+              stability counts (both entries; STAB_* below) at one chunk's
+              768 candidates on the 512^2 and 343^2 frames, and the mask
+              statistics (STATS_ZERO_BAND below) at the main path's two
+              calls a tile, crop 0's 256 slots on 512^2 and the four layer-1
+              crops' 1024 slots on 343^2; both at ragged frames too, gated
+              outputs exactly zero.
               Each is timed with CUDA events beside its plain version, its
               bound (bytes over 3.35 TB/s or operations over the peak rate,
               whichever is larger) and, where one PyTorch call computes the
@@ -26,7 +32,11 @@ Phases (any failure raises, and the exit code is non-zero):
               the SAM encoder at ViT-B width and depth on a 256^2 image, a
               whole `Sam.forward` at vit_t, and `Sam.decode_points_fast` at
               vit_t against the same call on the CPU and against
-              `Sam.decode_points` on the card (f32, SAM_CHECK_TOL below).
+              `Sam.decode_points` on the card (f32, SAM_CHECK_TOL below);
+              a vit_t f32 region generator (96^2 tiles): `generate_regions`,
+              `generate_regions_batch` and `generate_regions_stream` on the
+              card give the CPU's maps, and a run with interleaved masks
+              gives the blocked ones through the interleaved stability entry.
   2. serve    ResNet-101 DeepLabv2 (C = 6) eval forward on 16 tiles of 512^2,
               bf16 compute with f32 weights: shape, finiteness, probabilities
               summing to 1 within 1e-2, tiles/s.
@@ -49,12 +59,35 @@ Phases (any failure raises, and the exit code is non-zero):
               the median IoU (gated masks equal or exactly zero), ms per
               chunk of both paths at both sizes, peak memory, and a
               torch.profiler split of one fast chunk with its idle share.
+  5. regions  `sam_regions_entry()`: `SamRegionGenerator` over SAM ViT-B, 8
+              tiles of 512^2, the reference's everything-mode configuration
+              (32 x 32 points, crop_n_layers=1 with the grid halved, 256
+              prompts a chunk, budget 256, exact stability, IoU gate, bf16,
+              blocked masks). The weights are random, so the IoU and
+              stability thresholds and the stability offset are the medians
+              of the run's own scores on crop 0 of tile 0 (printed).
+              `generate_regions_batch(tiles)` once, with the launch counts
+              around it asserted exactly (per live chunk one stability, one
+              two-way and one mask-head call; mask statistics twice a tile;
+              24 LayerNorm and 12 attention launches an encode); int32
+              (512, 512) maps with ids below MAX_REGIONS, not all empty
+              (on random weights every mask spans its crop, so NMS leaves
+              about one region a tile); then `generate_regions_stream` over 3
+              batches, its maps equal to the batch call's. Tiles/s of both,
+              ms per tile by stage, candidates through each filter, chunks
+              skipped, peak memory, and a torch.profiler split of one tile
+              with the device's idle share. Last, the same generator with
+              both NMS thresholds at 1.0, so that hundreds of masks a tile
+              are painted: every tile holds more than one region, and
+              `generate_regions_batch` and `generate_regions` give the maps
+              of `generate()` + `regions_from_anns`, whose boxes, areas and
+              paint are numpy on the host.
 Launch counts are zeroed just before phases 2-3, again just before the
-encode of phase 4 and again just before its fast decode, and read just after
-each.
+encode of phase 4, again just before its fast decode and again just before
+phase 5's batch call, and read just after each.
 TF32 is off in every phase (`torch.backends.cudnn.allow_tf32` and
-`torch.backends.cuda.matmul.allow_tf32` both False): phases 2
-and 4 compute in bf16, and the others hold float32 as float32, as the JAX
+`torch.backends.cuda.matmul.allow_tf32` both False): phases 2,
+4 and 5 compute in bf16, and the others hold float32 as float32, as the JAX
 train path does.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
@@ -114,6 +147,24 @@ TWOWAY_BF16_STEPS = 8
 # the fast decode against the stock decode, both in bf16 at full width: two
 # computations of one function that round at different places throughout
 FAST_VS_STOCK_BF16_STEPS = 16
+# stability counts over a (ch, cw) frame: the kernel sums each pixel's 4 + 4
+# taps with fused multiply-adds in index order, the plain version with dense
+# matmuls in the library's order, so a resized logit within an ulp of +-offset
+# may fall on the other side and move a count by one. In bf16 the row-resized
+# intermediate is rounded to bf16 as well, and a value on a rounding boundary
+# there moves the pixel by a whole bf16 step (2^-8 relative): more pixels can
+# change sides, still a small share of the frame. Limits: |count difference|
+# <= 1 + share * ch * cw, and in bf16 also the stability score inter / union.
+# On an H100 no count has differed at any shape below; the bf16 share leaves
+# room for a few such pixels a candidate at the smallest frame.
+STAB_F32_SHARE = 1e-5
+STAB_BF16_SHARE = 1e-4
+STAB_BF16_SCORE_TOL = 5e-4
+# mask statistics are float32 throughout and thresholded at 0: bits, boxes and
+# areas must equal the plain version's, except that a pixel may differ where
+# the plain version's resized logit lies within this share of the largest
+# |logit| of 0 (fused multiply-adds and the order of 4-term sums)
+STATS_ZERO_BAND = 2.0 ** -20
 
 
 def bound_ms(nbytes: float, flops: float, rate: str) -> tuple[float, str]:
@@ -126,7 +177,8 @@ def build_kernels() -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
     from regda_tpu_torch.ops.kernels import _build
-    names = ('segment_hist', 'layernorm', 'rel_attention', 'upscale', 'two_way')
+    names = ('segment_hist', 'layernorm', 'rel_attention', 'upscale', 'two_way',
+             'stability', 'mask_stats')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load_library, names))
@@ -580,6 +632,224 @@ def phase_two_way(device) -> dict:
             'max_abs_err': max_err, **times(64), 'prompts_256': times(256)}
 
 
+def _resize_case(rng, device, dtype, m, s, frame, main: bool, scale: float = 2.0):
+    """Logits (M, S, S) and the `ResizeFrame` of one frame on the card: the
+    composed chain of the main path (crops resized to the 1024^2 model frame)
+    or, for the small cases, the plain half-pixel matrices that the JAX tests
+    use."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.models.sam.auto import composed_resize_matrices
+    from regda_tpu_torch.ops.kernels._band import ResizeFrame
+    from regda_tpu_torch.ops.resize import _interp_matrix_half_pixel
+    ch, cw = frame
+    if main:
+        m_h, m_w = composed_resize_matrices(4 * s, (4 * s, 4 * s, ch, cw), s)
+    else:
+        m_h, m_w = _interp_matrix_half_pixel(s, ch), _interp_matrix_half_pixel(s, cw)
+    logits = torch.from_numpy((rng.normal(size=(m, s, s)) * scale).astype(np.float32))
+    return logits.to(device, dtype), ResizeFrame(m_h, m_w, device)
+
+
+def _gate(rng, device, m: int, kind):
+    import torch
+    if kind is None:
+        return None
+    active = torch.from_numpy(rng.random(m) < 0.5).to(device)
+    active[0], active[1] = True, False
+    if kind != 'some':
+        active[:] = kind == 'all'
+    return active
+
+
+def phase_stability(device) -> tuple[dict, dict]:
+    """The stability-count kernel's two entries against the plain version."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.ops.kernels import stability as st
+
+    rng = np.random.default_rng(14)
+    # (M, S, frame, main-path matrices, gate): one chunk's 768 candidates on
+    # crop 0 (512^2) and on a layer-1 crop (343^2), then the JAX tests' ragged
+    # frames at S = 32, and the gate with some, all and no candidates on
+    cases = [(768, 256, (512, 512), True, None), (768, 256, (343, 343), True, 'some'),
+             (7, 32, (51, 77), False, None), (7, 32, (51, 77), False, 'some'),
+             (5, 32, (100, 96), False, 'all'), (5, 32, (100, 96), False, 'none'),
+             (3, 64, (37, 200), False, 'some')]
+    max_err = {'blocked': 0.0, 'fused': 0.0}
+    for m, s, (ch, cw), main, gate in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            logits, frame = _resize_case(rng, device, dtype, m, s, (ch, cw), main)
+            active = _gate(rng, device, m, gate)
+            want_i, want_u = st.stability_counts_plain(logits, frame.m_h, frame.m_wt, 1.0,
+                                                       active)
+            blk = st.block_masks(logits, s // 4, s // 4).contiguous()
+            if not torch.equal(st.unblock_masks(blk, s // 4, s // 4), logits):
+                raise AssertionError('block_masks / unblock_masks do not invert each other')
+            share = STAB_F32_SHARE if dtype == torch.float32 else STAB_BF16_SHARE
+            limit = 1 + share * ch * cw
+            for entry, (got_i, got_u) in (
+                    ('blocked', st.stability_counts_blocked(blk, frame, s // 4, s // 4, 1.0,
+                                                            active)),
+                    ('fused', st.stability_counts_fused(logits, frame, 1.0, active))):
+                torch.cuda.synchronize()
+                what = (f'stability {entry} M={m} S={s} frame {ch}x{cw} {str(dtype)[6:]} '
+                        f'gate={gate}')
+                if got_i.dtype != torch.float32 or tuple(got_i.shape) != (m,):
+                    raise AssertionError(f'{what}: got {got_i.dtype} {tuple(got_i.shape)}')
+                d_i, d_u = (got_i - want_i).abs(), (got_u - want_u).abs()
+                err = float(torch.maximum(d_i, d_u).max())
+                if not err <= limit:
+                    raise AssertionError(f'{what}: counts differ by {err} > {limit:.2f}')
+                if active is not None and bool(((got_i != 0) | (got_u != 0))[~active].any()):
+                    raise AssertionError(f'{what}: a gated candidate is not exactly zero')
+                score = float((got_i / got_u.clamp(min=1) - want_i / want_u.clamp(min=1))
+                              .abs().max())
+                if dtype == torch.bfloat16 and score > STAB_BF16_SCORE_TOL:
+                    raise AssertionError(f'{what}: stability scores differ by {score}')
+                max_err[entry] = max(max_err[entry], err)
+                print(f'[kernel] {what}: {int((d_i > 0).sum())} + {int((d_u > 0).sum())} of '
+                      f'{m} + {m} counts differ, by at most {err:.0f} (limit {limit:.2f}, counts '
+                      f'up to {float(want_u.max()):.0f}); score differs by at most {score:.2g}')
+            del logits, blk
+            torch.cuda.empty_cache()
+    dense = np.ones((20, 16), np.float32)
+    try:
+        st.ResizeFrame(dense, dense, device)
+    except ValueError:
+        print('[kernel] stability: a resize matrix with more than 4 taps a row raises')
+    else:
+        raise AssertionError('stability took a dense resize matrix')
+
+    # time one chunk's 768 candidates, bf16, as the main path calls it: half
+    # of them gated off would halve the work; here all are on
+    def times(entry, frame):
+        ch, cw = frame
+        logits, fr = _resize_case(rng, device, torch.bfloat16, 768, 256, frame, True)
+        if entry == 'blocked':
+            blk = st.block_masks(logits, 64, 64).contiguous()
+            ms = cuda_ms(lambda: st.stability_counts_blocked(blk, fr, 64, 64, 1.0), 50)
+        else:
+            ms = cuda_ms(lambda: st.stability_counts_fused(logits, fr, 1.0), 50)
+        plain_ms = cuda_ms(lambda: st.stability_counts_plain(logits, fr.m_h, fr.m_wt, 1.0), 3,
+                           warmup=1)
+        # the logits read once, the band forms once, two counts a candidate
+        # written; 4 + 4 taps (a multiply and an add each) per pixel of the
+        # row-resized strip and of the frame, on the f32 units
+        nbytes = logits.numel() * 2 + (ch + cw) * 20 + 768 * 8
+        flops = 768 * 8.0 * (ch * 256 + ch * cw)
+        bound, by = bound_ms(nbytes, flops, 'f32')
+        dense_ms = 768 * 2.0 * (ch * 256 * 256 + ch * 256 * cw) / PEAK_FLOPS['bf16'] * 1e3
+        print(f'[kernel] stability {entry} bf16 M=768 S=256 frame {ch}x{cw}: kernel {ms:.4f} ms, '
+              f'plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; the dense products of the '
+              f'TPU kernels would be {dense_ms:.4f} ms at the bf16 tensor peak); no single '
+              f'PyTorch call computes it (CUDA events, 50 calls, inputs L2-cold: 100 MB)')
+        torch.cuda.empty_cache()
+        return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
+                'library_ms': None}
+    src = 'regda_tpu_torch/csrc/stability.cu'
+    blocked = {'name': 'stability_counts_blocked', 'route': 'cuda', 'source': src,
+               'replaces': 'regda_tpu/models/sam/pallas_stability.py:415',
+               'also_replaces': 'regda_tpu/models/sam/pallas_stability.py:303',
+               'max_abs_err': max_err['blocked'], **times('blocked', (512, 512)),
+               'frame_343': times('blocked', (343, 343))}
+    fused = {'name': 'stability_counts_fused', 'route': 'cuda', 'source': src,
+             'replaces': 'regda_tpu/models/sam/pallas_stability.py:135',
+             'max_abs_err': max_err['fused'], **times('fused', (512, 512)),
+             'frame_343': times('fused', (343, 343))}
+    return blocked, fused
+
+
+def phase_mask_stats(device) -> dict:
+    """The mask-statistics kernel against the plain version."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.ops.kernels import mask_stats as ms_
+
+    rng = np.random.default_rng(15)
+    # (M, S, frame, main-path matrices, gate): the main path's two calls a
+    # tile, crop 0's 256 budget slots on the 512^2 frame and the four layer-1
+    # crops' 1024 slots together on the 343^2 frame, then one crop's 256 slots
+    # there (`generate_regions` works crop by crop), the ragged frames and the
+    # gate
+    cases = [(256, 256, (512, 512), True, 'some'), (1024, 256, (343, 343), True, 'some'),
+             (256, 256, (343, 343), True, None),
+             (7, 32, (51, 77), False, None), (7, 32, (51, 77), False, 'some'),
+             (5, 32, (100, 96), False, 'all'), (5, 32, (100, 96), False, 'none'),
+             (3, 64, (37, 200), False, 'some')]
+    flipped = 0
+    for m, s, (ch, cw), main, gate in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            logits, frame = _resize_case(rng, device, dtype, m, s, (ch, cw), main)
+            m_h, m_wt = frame.m_h, frame.m_wt
+            logits[m - 1] = -1.0       # an empty mask: box [0, 0, 0, 0], area 0
+            active = _gate(rng, device, m, gate)
+            bits, boxes, areas = ms_.mask_stats_fused(logits, frame, active=active)
+            w_bits, w_boxes, w_areas = ms_.mask_stats_plain(logits, m_h, m_wt, ch, cw, active)
+            torch.cuda.synchronize()
+            what = f'mask_stats M={m} S={s} frame {ch}x{cw} {str(dtype)[6:]} gate={gate}'
+            if bits.dtype != torch.uint8 or tuple(bits.shape) != (m, ch, (cw + 7) // 8):
+                raise AssertionError(f'{what}: bits {bits.dtype} {tuple(bits.shape)}')
+            got_mask = ms_.unpack_bits(bits, cw).bool()
+            diff = got_mask != ms_.unpack_bits(w_bits, cw).bool()
+            n_diff = int(diff.sum())
+            if n_diff:
+                # a differing pixel must lie in the plain version's zero band
+                y = torch.matmul(torch.matmul(m_h, logits.float()), m_wt)
+                band = STATS_ZERO_BAND * float(logits.float().abs().max())
+                if float(y[diff].abs().max()) > band:
+                    raise AssertionError(f'{what}: {n_diff} pixels differ, one with |y| = '
+                                         f'{float(y[diff].abs().max())} > {band}')
+                del y
+            # its boxes and areas are those of ITS bits (computed anew here),
+            # so they differ from the plain version's by those pixels alone
+            own = ms_.mask_stats_plain(torch.where(got_mask, 1.0, -1.0), *(
+                torch.eye(n, device=device) for n in (ch, cw)), ch, cw)
+            if not (torch.equal(boxes, own[1]) and torch.equal(areas, own[2])):
+                raise AssertionError(f'{what}: boxes or areas do not belong to the bits')
+            if n_diff == 0 and not (torch.equal(boxes, w_boxes) and torch.equal(areas, w_areas)):
+                raise AssertionError(f'{what}: boxes or areas differ from the plain version')
+            pad = ms_.unpack_bits(bits, 8 * bits.shape[-1])[..., cw:]
+            if bool(pad.any()):
+                raise AssertionError(f'{what}: a bit past the frame is set')
+            if active is not None and bool(bits[~active].any() or boxes[~active].any()
+                                           or areas[~active].any()):
+                raise AssertionError(f'{what}: a gated slot is not exactly zero')
+            if float(areas[m - 1]) != 0 or bool(boxes[m - 1].any()):
+                raise AssertionError(f'{what}: the empty mask has a box or an area')
+            flipped += n_diff
+            print(f'[kernel] {what}: {n_diff} of {m * ch * cw} pixels differ (all within the '
+                  f'zero band), boxes and areas belong to the bits; areas up to '
+                  f'{float(areas.max()):.0f}')
+            del logits, bits, got_mask, diff
+            torch.cuda.empty_cache()
+
+    # time the main path's two calls a tile, bf16 logits, all slots active
+    def times(m, frame):
+        ch, cw = frame
+        logits, fr = _resize_case(rng, device, torch.bfloat16, m, 256, frame, True)
+        ms = cuda_ms(lambda: ms_.mask_stats_fused(logits, fr), 50)
+        plain_ms = cuda_ms(lambda: ms_.mask_stats_plain(logits, fr.m_h, fr.m_wt, ch, cw), 3,
+                           warmup=1)
+        # the logits read once, the band forms once; bits, boxes and areas
+        # written once; 4 + 4 taps per pixel on the f32 units
+        nbytes = logits.numel() * 2 + (ch + cw) * 20 + m * (ch * ((cw + 7) // 8) + 20)
+        bound, by = bound_ms(nbytes, m * 8.0 * (ch * 256 + ch * cw), 'f32')
+        dense_ms = m * 2.0 * (ch * 256 * 256 + ch * 256 * cw) / PEAK_FLOPS['f32'] * 1e3
+        print(f'[kernel] mask_stats bf16 logits M={m} S=256 frame {ch}x{cw}: kernel {ms:.4f} ms, '
+              f'plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; dense float32 products '
+              f'would be {dense_ms:.4f} ms at the f32 peak); no single PyTorch call computes it '
+              f'(CUDA events, 50 calls)')
+        torch.cuda.empty_cache()
+        return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
+                'library_ms': None}
+    return {'name': 'mask_stats_fused', 'route': 'cuda',
+            'source': 'regda_tpu_torch/csrc/mask_stats.cu',
+            'replaces': 'regda_tpu/models/sam/pallas_stats.py:148',
+            'max_abs_err': float(flipped), 'pixels_in_zero_band_that_differ': flipped,
+            **times(256, (512, 512)), 'frame_343_m1024': times(1024, (343, 343))}
+
+
 def phase_check(device):
     """The card agrees with the CPU on small inputs."""
     import torch
@@ -680,6 +950,102 @@ def phase_check(device):
                             **SAM_CHECK_TOL)
         print(f'[check] vit_t decode_points_fast vs decode_points on the card, f32 {name}: '
               f'max abs err {err:.3g}')
+
+
+def _crop_scores(gen, tile) -> dict:
+    """Predicted IoU, stability score and logit scale (median |low-res logit|)
+    of every candidate of the full-image crop, (points, 3) numpy arrays, with
+    no gate and no filter."""
+    import torch
+    h, w = tile.shape[:2]
+    out = {'iou': [], 'stability': [], 'logit_scale': []}
+    gate, gen.iou_gate = gen.iou_gate, False
+    with torch.inference_mode():
+        batchable, (nh, nw) = gen._preprocess(tile)
+        embedding = gen._encode(torch.from_numpy(batchable).to(gen.device))
+        pts, valid = gen._points(0, nh, nw)
+        for chunk in pts.split(gen.points_per_batch):
+            masks, iou, stab = gen._decode_chunk(embedding, chunk, (nh, nw, h, w))
+            p, m3 = iou.shape
+            out['iou'].append(iou)
+            out['stability'].append(stab)
+            out['logit_scale'].append(masks.reshape(p, m3, -1).float().abs().median(-1).values)
+        n = int(valid.sum())
+    gen.iou_gate = gate
+    return {k: torch.cat(v)[:n].cpu().numpy() for k, v in out.items()}
+
+
+def _calibrate(gen, tile) -> tuple[float, float, float]:
+    """Thresholds from the run's own score distribution, for random weights
+    (the published 0.88 / 0.95 at offset 1.0 pass nothing there): the median
+    predicted IoU of the full-image crop's candidates, the median logit scale
+    of those that pass it as the stability offset, and their median stability
+    at that offset. Sets them on the generator."""
+    import numpy as np
+    scores = _crop_scores(gen, tile)
+    t_iou = float(np.median(scores['iou']))
+    passing = scores['iou'] > t_iou
+    gen.stability_score_offset = float(np.median(scores['logit_scale'][passing]))
+    t_st = float(np.median(_crop_scores(gen, tile)['stability'][passing]))
+    gen.pred_iou_thresh, gen.stability_score_thresh = t_iou, t_st
+    return t_iou, t_st, gen.stability_score_offset
+
+
+def check_regions(device) -> int:
+    """Small-size region generation, card against CPU: a vit_t f32 generator
+    (128^2 model frame, 96^2 tiles, 8 x 8 points, one crop layer). The three
+    calls on the card must give the maps of the same calls on the CPU. Then
+    one run with interleaved masks, which goes through the interleaved
+    stability entry; returns that run's launches of it."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.entry import sam_regions_entry
+    from regda_tpu_torch.ops.kernels import stability as st
+
+    # on random weights every candidate's mask spans its crop, all boxes are
+    # the crop's, and NMS at the reference's 0.7 keeps one region a crop. At
+    # 1.0 it suppresses nothing: every selected mask is painted, and the
+    # maps check many masks' bits (the NMS itself is host numpy, held to the
+    # JAX package's by the CPU tests)
+    kw = dict(vit_config='vit_t', img_size=128, tiles=3, tile=96, seed=9, dtype=torch.float32,
+              points_per_side=8, points_per_batch=32, box_nms_thresh=1.0,
+              crop_nms_thresh=1.0)
+    cpu, tiles = sam_regions_entry('cpu', **kw)
+    t_iou, t_st, off = _calibrate(cpu, tiles[0])
+    kw.update(pred_iou_thresh=t_iou, stability_score_thresh=t_st, stability_score_offset=off)
+    card = sam_regions_entry(device, **kw)[0]
+    print(f'[check] vit_t region generator: thresholds from crop 0 of tile 0 on the CPU: IoU > '
+          f'{t_iou:.4f}, stability >= {t_st:.4f} at offset {off:.4f}')
+    calls = {
+        'generate_regions': lambda g: [g.generate_regions(t, area_threshold=32) for t in tiles],
+        'generate_regions_batch': lambda g: g.generate_regions_batch(tiles, area_threshold=32),
+        'generate_regions_stream': lambda g: [m for maps in g.generate_regions_stream(
+            [tiles[:1], tiles[1:], tiles[::-1]], area_threshold=32) for m in maps]}
+    for name, call in calls.items():
+        want, got = call(cpu), call(card)
+        regions = [len(np.unique(m)) - 1 for m in want]
+        if max(regions) < 2:
+            raise AssertionError(f'{name}: the CPU maps hold {regions} regions; the check is empty')
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != np.int32 or g.shape != (96, 96) or not np.array_equal(g, w):
+                raise AssertionError(f'{name}: map {i} on the card differs from the CPU\'s on '
+                                     f'{int((g != w).sum())} of {w.size} pixels')
+        print(f'[check] vit_t {name} f32, card vs CPU: {len(want)} maps equal '
+              f'({regions} regions)')
+    want = calls['generate_regions_batch'](card)
+    inter = sam_regions_entry(device, blocked_masks=False, **kw)[0]
+    st.launches_fused = 0
+    got = calls['generate_regions_batch'](inter)
+    launches, chunks = st.launches_fused, inter.counts['chunks_live']
+    if launches != chunks or launches == 0:
+        raise AssertionError(f'interleaved masks: {launches} launches of the interleaved '
+                             f'stability entry in {chunks} live chunks')
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError('interleaved masks give other maps than blocked masks')
+    print(f'[check] vit_t generate_regions_batch with blocked_masks=False: maps equal the '
+          f'blocked ones; {launches} launches of the interleaved stability entry, one per '
+          f'live chunk')
+    return launches
 
 
 def phase_serve(device) -> None:
@@ -920,6 +1286,203 @@ def sam_fast_checks_and_timings(device, model, emb, tw_record: dict) -> None:
           + ', '.join(f'{k} {v:.3f}' for k, v in detail.items()))
 
 
+def _regions_profile(gen, tile) -> str:
+    """Device time of one tile's region map by kind of kernel, and the idle
+    share of the device between its first kernel's start and its last one's
+    end, from torch.profiler (device tracing only; the second profile counts,
+    the first pays for starting the tracer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gen.generate_regions_batch([tile])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    tags = {'rel_attention': ('rel_attn',), 'layernorm': ('layernorm_kernel',),
+            'two_way': ('prep_kernel', 'mid_kernel', 'final_kernel', 'rows_mma', 'cols_mma'),
+            'upscale': ('upscale_',), 'stability': ('stability_kernel',),
+            'mask_stats': ('mask_stats_kernel',),
+            'gemm': ('gemm', 'nvjet', 'cutlass', 'xmma')}
+    kinds = {k: 0.0 for k in (*tags, 'other')}
+    first_us, last_us, events = math.inf, -math.inf, 0
+    for ev in prof.events():
+        if str(ev.device_type).endswith('CUDA'):
+            events += 1
+            first_us = min(first_us, ev.time_range.start)
+            last_us = max(last_us, ev.time_range.end)
+            name = ev.name.lower()
+            kind = next((k for k, ts in tags.items() if any(t in name for t in ts)), 'other')
+            kinds[kind] += ev.device_time / 1e3
+    total = sum(kinds.values())
+    if total <= 0:
+        return 'not measured (the profiler reported no device time)'
+    span_ms = (last_us - first_us) / 1e3
+    return (f'{total:.2f} ms of device time in {events} kernels and copies: '
+            + ', '.join(f'{k} {v:.3f} ms ({100 * v / total:.1f} %)' for k, v in kinds.items())
+            + f'; device idle {100 * (1 - total / span_ms):.1f} % of the {span_ms:.2f} ms from its '
+            f'first kernel\'s start to its last kernel\'s end (the profiled call took '
+            f'{wall_ms:.2f} ms of wall time)')
+
+
+def regions_many_masks(gen, tiles) -> None:
+    """The full-width generator with both NMS thresholds at 1.0, where nothing
+    is suppressed and every selected mask off the crop edge is painted:
+    hundreds of regions a tile go through slot selection, the mask statistics,
+    the ids and the paint. `generate_regions_batch` (one 5-crop encode a tile,
+    budget skip) and `generate_regions` (crop by crop) must give the map of
+    `generate()` + `regions_from_anns`, whose boxes, areas, NMS bookkeeping
+    and paint run on the host in numpy on the downloaded mask bits. The
+    annotation path resizes its crop on the host; here it is given the card's
+    preprocess, so that all three feed the encoder the same bits: in bf16 with
+    thresholds at the medians of the scores, an input one rounding apart would
+    move candidates across a threshold."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.models.sam.auto import (SamRegionGenerator, preprocess_shape,
+                                                 regions_from_anns)
+    from regda_tpu_torch.ops.lrh import MAX_REGIONS
+
+    class AnnPath(SamRegionGenerator):
+        def _preprocess(self, crop_np):
+            crop = torch.from_numpy(np.ascontiguousarray(crop_np)).to(self.device)
+            return (self._preprocess_device(crop).float().cpu().numpy(),
+                    preprocess_shape(*crop_np.shape[:2], self.img_size))
+
+    kw = dict(points_per_side=gen.points_per_side, points_per_batch=gen.points_per_batch,
+              pred_iou_thresh=gen.pred_iou_thresh,
+              stability_score_thresh=gen.stability_score_thresh,
+              stability_score_offset=gen.stability_score_offset, crop_n_layers=gen.crop_n_layers,
+              crop_n_points_downscale_factor=gen.crop_n_points_downscale_factor,
+              mask_budget=gen.mask_budget, box_nms_thresh=1.0, crop_nms_thresh=1.0)
+    open_gen, ann_path = SamRegionGenerator(gen.model, **kw), AnnPath(gen.model, **kw)
+    t0 = time.perf_counter()
+    maps = open_gen.generate_regions_batch(tiles)
+    batch_s = time.perf_counter() - t0
+    regions = [len(np.unique(m)) - (0 in m) for m in maps]
+    if min(regions) < 2:
+        raise AssertionError(f'NMS off: a tile has fewer than two regions: {regions}')
+    for i, (tile, got) in enumerate(zip(tiles, maps)):
+        # the region generator keeps the first MAX_REGIONS - 1 of the keep order
+        anns = ann_path.generate(tile)[:MAX_REGIONS - 1]
+        want = regions_from_anns(anns, tile.shape[:2])
+        single = open_gen.generate_regions(tile)
+        for name, m in (('generate_regions_batch', got), ('generate_regions', single)):
+            if m.dtype != np.int32 or m.max() >= MAX_REGIONS or not np.array_equal(m, want):
+                raise AssertionError(
+                    f'NMS off, tile {i}: {name} differs from generate() + regions_from_anns on '
+                    f'{int((m != want).sum())} of {want.size} pixels ({len(anns)} annotations)')
+    print(f'[regions] NMS off (both thresholds 1.0), {len(tiles)} tiles: regions per tile '
+          f'{regions}, covering {100 * float(np.mean([(m > 0).mean() for m in maps])):.1f} % of '
+          f'the pixels; generate_regions_batch ({batch_s * 1e3:.1f} ms) and generate_regions '
+          f'equal generate() + regions_from_anns (boxes, areas and paint on the host) on every '
+          f'tile')
+
+
+def phase_regions(device, **entry_kwargs) -> dict:
+    """Phase 5: everything-mode region maps at full width (`entry_kwargs`: a
+    smaller model for a rehearsal). Returns the launch counts of one
+    `generate_regions_batch` over the 8 tiles."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.entry import sam_regions_entry
+    from regda_tpu_torch.ops.kernels import layernorm as ln
+    from regda_tpu_torch.ops.kernels import mask_stats as ms_
+    from regda_tpu_torch.ops.kernels import rel_attention as ra
+    from regda_tpu_torch.ops.kernels import stability as st
+    from regda_tpu_torch.ops.kernels import two_way as tw
+    from regda_tpu_torch.ops.kernels import upscale as up
+    from regda_tpu_torch.ops.lrh import MAX_REGIONS
+
+    gen, tiles = sam_regions_entry(device, timing=True, **entry_kwargs)
+    n = len(tiles)
+    t_iou, t_st, off = _calibrate(gen, tiles[0])
+    print(f'[regions] SAM {entry_kwargs.get("vit_config", "vit_b")} {str(gen.compute_dtype)[6:]}, '
+          f'{n} tiles of 512^2, {gen.points_per_side}^2 points, crop_n_layers='
+          f'{gen.crop_n_layers}, {gen.points_per_batch} prompts a chunk, budget '
+          f'{gen.mask_budget}, exact stability, IoU gate, blocked masks. Random '
+          f'weights: the thresholds are the medians of crop 0 of tile 0, IoU > {t_iou:.4f} and '
+          f'stability >= {t_st:.3g} at offset {off:.4f}; they stand in for 0.90 / 0.95 at '
+          f'offset 1.0, which pass nothing on random weights')
+    gen.generate_regions_batch(tiles[:1])          # first use: caches, band forms, allocator
+    torch.cuda.synchronize()
+    gen.reset_report()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: one batch call, the launch counts around it
+    ln.launches = ra.launches = tw.launches = tw.cuda_launches = up.launches = 0
+    st.launches_blocked = st.launches_fused = ms_.launches = 0
+    t0 = time.perf_counter()
+    maps = gen.generate_regions_batch(tiles)
+    batch_s = time.perf_counter() - t0
+    counts = {'layernorm': ln.launches, 'rel_attention': ra.launches, 'two_way': tw.launches,
+              'two_way_cuda': tw.cuda_launches, 'upscale': up.launches,
+              'stability_blocked': st.launches_blocked, 'stability_fused': st.launches_fused,
+              'mask_stats': ms_.launches}
+    rep = gen.report()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # per tile: 4 chunks on crop 0 and 1 on each of the 4 layer-1 crops, less
+    # what the budget skip saved; one stability, two-way and mask-head call per
+    # live chunk; the mask statistics once per group of crops of one size
+    # (crop 0; the four layer-1 crops together); one encode of the 5 crops
+    live, skipped = rep['chunks_live'], rep['chunks_skipped']
+    want = {'layernorm': 24 * n, 'rel_attention': 12 * n, 'two_way': live, 'upscale': live,
+            'stability_blocked': live, 'stability_fused': 0, 'mask_stats': 2 * n}
+    if live + skipped != 8 * n:
+        raise AssertionError(f'{live} live + {skipped} skipped chunks != {8 * n}')
+    for key, val in want.items():
+        if counts[key] != val:
+            raise AssertionError(f'regions: {key} launched {counts[key]} times, expected {val} '
+                                 f'(all counts {counts}, {live} live chunks)')
+    regions = [len(np.unique(m)) - (0 in m) for m in maps]
+    for m in maps:
+        if m.dtype != np.int32 or m.shape != (512, 512):
+            raise AssertionError(f'region map {m.dtype} {m.shape}')
+        if m.min() < 0 or m.max() >= MAX_REGIONS:
+            raise AssertionError(f'region ids span {m.min()}..{m.max()}')
+    if max(regions) < 1:
+        raise AssertionError(f'every region map is empty: {regions}')
+    print(f'[regions] generate_regions_batch({n} tiles): {batch_s * 1e3:.1f} ms, '
+          f'{n / batch_s:.3f} tiles/s; regions per tile {regions}, covering '
+          f'{100 * float(np.mean([(m > 0).mean() for m in maps])):.1f} % of the pixels; peak '
+          f'{peak:.2f} GiB')
+    print(f'[regions] launches in that call: {counts}; chunks: {live} live, {skipped} skipped '
+          f'by the budget skip')
+    print(f'[regions] candidates {rep["candidates"]}: pass IoU {rep["pass_iou"]}, and stability '
+          f'{rep["pass_iou_and_stability"]}, selected within the budget {rep["selected"]}, off '
+          f'the crop edge {rep["off_crop_edge"]}, after per-crop NMS {rep["per_crop_nms"]}, after '
+          f'cross-crop NMS {rep["cross_crop_nms"]}, painted (area >= 1024) {rep["painted"]}')
+    print('[regions] ms per tile by stage (device timeline between CUDA events, idle gaps '
+          'included; nms on the host clock): '
+          + ', '.join(f'{k} {v / n:.3f}' for k, v in rep['stage_ms'].items()))
+
+    # the stream: 3 batches in flight; its maps are the batch call's. Both
+    # calls are host-bound and vary with the host, so each is read twice, in turns
+    batches = [tiles, tiles[::-1], tiles]
+    reads = {'stream': [], 'batch': [batch_s / n]}
+    for turn in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streamed = list(gen.generate_regions_stream(iter(batches)))
+        reads['stream'].append((time.perf_counter() - t0) / (3 * n))
+        for got, order in zip(streamed, (1, -1, 1)):
+            if not all(np.array_equal(g, w) for g, w in zip(got, maps[::order])):
+                raise AssertionError('a streamed map differs from the batch call\'s')
+        if turn == 0:
+            t0 = time.perf_counter()
+            gen.generate_regions_batch(tiles)
+            reads['batch'].append((time.perf_counter() - t0) / n)
+    print(f'[regions] generate_regions_stream(3 batches of {n}, depth 3): '
+          + ' and '.join(f'{1 / t:.3f}' for t in reads['stream'])
+          + ' tiles/s; maps equal the batch call\'s; generate_regions_batch read in turns with '
+          'it: ' + ' and '.join(f'{1 / t:.3f}' for t in reads['batch']) + ' tiles/s')
+    print(f'[regions] one tile under torch.profiler: {_regions_profile(gen, tiles[0])}')
+    regions_many_masks(gen, tiles)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -945,7 +1508,12 @@ def main() -> int:
     attn_record = phase_attention(device)
     up_record = phase_upscale(device)
     tw_record = phase_two_way(device)
+    stb_record, stf_record = phase_stability(device)
+    stats_record = phase_mask_stats(device)
     phase_check(device)
+    # the interleaved stability entry's path: the small generator run with
+    # blocked_masks=False (the full-width path below takes the blocked entry)
+    stf_record['launches'] = check_regions(device)
 
     sh.launches = 0
     phase_serve(device)
@@ -972,8 +1540,18 @@ def main() -> int:
                              f'upscale {up.launches} times (expected 1 + 1 per chunk)')
     sam_timings(*sam)   # these launch more, after the counts are read
     sam_fast_checks_and_timings(device, model, emb, tw_record)
+    del sam, model, emb
+    torch.cuda.empty_cache()
 
-    print(json.dumps({'kernels': [record, ln_record, attn_record, tw_record, up_record]}))
+    counts = phase_regions(device)   # zeroes every count before its batch call
+    stb_record['launches'] = counts['stability_blocked']
+    stats_record['launches'] = counts['mask_stats']
+    for rec, key in ((ln_record, 'layernorm'), (attn_record, 'rel_attention'),
+                     (tw_record, 'two_way'), (up_record, 'upscale')):
+        rec['launches_regions'] = counts[key]
+
+    print(json.dumps({'kernels': [record, ln_record, attn_record, tw_record, up_record,
+                                  stb_record, stf_record, stats_record]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Entry points of the port: the served eval forward, a few stage-2 steps,
-and SAM's encode and point-prompt decode.
+SAM's encode and point-prompt decode, and SAM's everything-mode region
+generator.
 
 `entry()` is the counterpart of `__graft_entry__.entry()`: the DeepLabv2 /
 ResNet-101 (C = 6) eval forward with seeded random weights, and example
@@ -9,6 +10,10 @@ over ragged region maps, the path whose histogram is a CUDA kernel.
 `sam_entry()` builds SAM with seeded random weights and example crops and
 point prompts; its encoder runs the LayerNorm and attention CUDA kernels and
 its fast decode (`Sam.decode_points_fast`) the two-way and mask-head ones.
+`sam_regions_entry()` wraps such a SAM in a `SamRegionGenerator` at the
+reference's everything-mode configuration and returns it with seeded tiles;
+its region maps run all of SAM's kernels, the stability counts and the mask
+statistics included.
 
 Every entry point runs on the card (`device='cuda'`) unless the caller names
 another device, and raises where no card is found: nothing moves to the CPU
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from regda_tpu_torch.models import build_deeplabv2
-from regda_tpu_torch.models.sam.auto import Sam, build_point_grid
+from regda_tpu_torch.models.sam.auto import Sam, SamRegionGenerator, build_point_grid
 from regda_tpu_torch.train import create_train_state, make_optimizer
 from regda_tpu_torch.train.steps import make_stage2_step
 
@@ -117,6 +122,19 @@ def stage2_steps(n: int, device='cuda'):
     return state, metrics, seconds
 
 
+def _seeded_sam(device, vit_config: str, img_size: int, dtype: torch.dtype, seed: int) -> Sam:
+    """SAM in eval mode on `device` with seeded random weights; the position
+    tables, which a fresh model holds as zeros, are drawn too (std 0.02)."""
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        model = Sam(vit_config=vit_config, img_size=img_size, dtype=dtype)
+        with torch.no_grad():
+            for name, param in model.named_parameters():
+                if name.endswith(('pos_embed', 'rel_pos_h', 'rel_pos_w')):
+                    param.normal_(std=0.02)
+    return model.to(device).eval()
+
+
 def sam_entry(device='cuda', *, vit_config: str = 'vit_b', img_size: int = 1024,
               crops: int = 5, points: int = 64,
               dtype: torch.dtype = torch.bfloat16, seed: int = 0):
@@ -135,14 +153,7 @@ def sam_entry(device='cuda', *, vit_config: str = 'vit_b', img_size: int = 1024,
     fresh model holds as zeros, are drawn too (std 0.02), so that the bias
     path of the attention kernel carries values."""
     device = _device(device)
-    with torch.random.fork_rng():
-        torch.manual_seed(seed)
-        model = Sam(vit_config=vit_config, img_size=img_size, dtype=dtype)
-        with torch.no_grad():
-            for name, param in model.named_parameters():
-                if name.endswith(('pos_embed', 'rel_pos_h', 'rel_pos_w')):
-                    param.normal_(std=0.02)
-    model = model.to(device).eval()
+    model = _seeded_sam(device, vit_config, img_size, dtype, seed)
     rng = np.random.default_rng(seed)
     images = rng.normal(size=(crops, img_size, img_size, 3)).astype(np.float32)
     grid = build_point_grid(32)[:points] * img_size
@@ -150,3 +161,24 @@ def sam_entry(device='cuda', *, vit_config: str = 'vit_b', img_size: int = 1024,
     args = (images, grid[:, None, :], labels)
     return model, tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
                         for a in args)
+
+
+def sam_regions_entry(device='cuda', *, vit_config: str = 'vit_b', img_size: int = 1024,
+                      tiles: int = 8, tile: int = 512, seed: int = 0,
+                      dtype: torch.dtype = torch.bfloat16, **generator_kwargs):
+    """-> (generator, tiles): a `SamRegionGenerator` over SAM with seeded
+    random weights (as `sam_entry`), at the reference's everything-mode
+    configuration (32 x 32 points, one crop layer with the grid halved, 256
+    prompts a chunk, a budget of 256 masks a crop, thresholds 0.90 / 0.95;
+    `generator_kwargs` override), and `tiles` seeded uint8 (tile, tile, 3)
+    images. `generator.generate_regions_batch(tiles)` returns one int32
+    (tile, tile) region map per tile."""
+    device = _device(device)
+    model = _seeded_sam(device, vit_config, img_size, dtype, seed)
+    kwargs = dict(points_per_side=32, points_per_batch=256, pred_iou_thresh=0.90,
+                  stability_score_thresh=0.95, crop_n_layers=1,
+                  crop_n_points_downscale_factor=2, mask_budget=256)
+    kwargs.update(generator_kwargs)
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 256, size=(tile, tile, 3), dtype=np.uint8) for _ in range(tiles)]
+    return SamRegionGenerator(model, **kwargs), images

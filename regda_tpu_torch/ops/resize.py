@@ -8,12 +8,36 @@ and the result is cast back to the input dtype; sums come out in another
 order than the reference's matmuls, so results agree to float32 rounding.
 
 The `*_nchw` forms are what the models call inside their NCHW interior.
+
+`_interp_matrix_half_pixel` is the one matrix form the port keeps (numpy, as
+in the reference): SAM's everything-mode composes the mask resize chain into
+one matrix per axis from it (models/sam/auto.py).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=128)
+def _interp_matrix_half_pixel(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 matrix of 1-D linear interpolation with
+    half-pixel centers (`align_corners=False`), edge-clamped: two taps a row."""
+    if n_in == n_out:
+        return np.eye(n_out, dtype=np.float32)
+    pos = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    pos = np.clip(pos, 0.0, n_in - 1)
+    lo = np.clip(np.floor(pos).astype(np.int64), 0, max(n_in - 2, 0))
+    hi = np.minimum(lo + 1, n_in - 1)
+    frac = pos - lo
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    np.add.at(m, (np.arange(n_out), lo), (1.0 - frac).astype(np.float32))
+    np.add.at(m, (np.arange(n_out), hi), frac.astype(np.float32))
+    return m
 
 
 def bilinear_nchw(x: torch.Tensor, out_hw: tuple[int, int],

@@ -17,8 +17,10 @@ import pytest
 import torch
 
 from regda_tpu_torch.ops.kernels import layernorm as ln
+from regda_tpu_torch.ops.kernels import mask_stats as ms
 from regda_tpu_torch.ops.kernels import rel_attention as ra
 from regda_tpu_torch.ops.kernels import segment_hist as sh
+from regda_tpu_torch.ops.kernels import stability as st
 from regda_tpu_torch.ops.kernels import two_way as tw
 from regda_tpu_torch.ops.kernels import upscale as up
 from regda_tpu_torch.ops.lrh import homogenize
@@ -351,3 +353,93 @@ def test_sam_fast_decode_card_matches_cpu_and_stock(device):
         assert torch.allclose(g.cpu(), w, rtol=1e-3, atol=1e-3)
     assert torch.allclose(up.masks_from_blocked(got[0], 8, 8), stock[0], rtol=1e-3, atol=1e-3)
     assert torch.allclose(got[1], stock[1], rtol=1e-3, atol=1e-3)
+
+
+def _resize_inputs(device, dtype, m, s, ch, cw, seed):
+    from regda_tpu_torch.ops.resize import _interp_matrix_half_pixel
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy((rng.normal(size=(m, s, s)) * 2).astype(np.float32)).to(device, dtype)
+    frame = st.ResizeFrame(_interp_matrix_half_pixel(s, ch), _interp_matrix_half_pixel(s, cw),
+                           device)
+    active = torch.from_numpy(np.arange(m) % 2 == 0).to(device)
+    return logits, frame, active
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('entry', ['blocked', 'fused'])
+@pytest.mark.parametrize('m,s,ch,cw', [(7, 32, 51, 77), (5, 32, 100, 96), (3, 64, 37, 200)])
+def test_stability_kernel_matches_plain(device, m, s, ch, cw, entry, dtype):
+    logits, frame, active = _resize_inputs(device, dtype, m, s, ch, cw, seed=ch)
+    before = (st.launches_blocked, st.launches_fused)
+    if entry == 'blocked':
+        blk = st.block_masks(logits, s // 4, s // 4).contiguous()
+        inter, union = st.stability_counts_blocked(blk, frame, s // 4, s // 4, 1.0, active)
+        assert (st.launches_blocked, st.launches_fused) == (before[0] + 1, before[1])
+    else:
+        inter, union = st.stability_counts_fused(logits, frame, 1.0, active)
+        assert (st.launches_blocked, st.launches_fused) == (before[0], before[1] + 1)
+    want_i, want_u = st.stability_counts_plain(logits, frame.m_h, frame.m_wt, 1.0, active)
+    torch.cuda.synchronize()
+    limit = 1 + (1e-5 if dtype == torch.float32 else 1e-4) * ch * cw
+    assert float((inter - want_i).abs().max()) <= limit
+    assert float((union - want_u).abs().max()) <= limit
+    assert not bool(inter[~active].any() or union[~active].any())
+    assert float(union.max()) > 0
+
+
+def test_stability_kernel_non_square_source(device):
+    """h != w: planes of (h, w), a (4h, 4w) source, both entries."""
+    from regda_tpu_torch.ops.resize import _interp_matrix_half_pixel
+    rng = np.random.default_rng(3)
+    m, h, w, ch, cw = 4, 8, 12, 40, 50
+    blk = torch.from_numpy((rng.normal(size=(m, 16 * h, w)) * 2).astype(np.float32)).to(device)
+    frame = st.ResizeFrame(_interp_matrix_half_pixel(4 * h, ch),
+                           _interp_matrix_half_pixel(4 * w, cw), device)
+    il = st.unblock_masks(blk, h, w).contiguous()
+    want = st.stability_counts_plain(il, frame.m_h, frame.m_wt, 1.0)
+    for got in (st.stability_counts_blocked(blk, frame, h, w, 1.0),
+                st.stability_counts_fused(il, frame, 1.0)):
+        torch.cuda.synchronize()
+        assert float((got[0] - want[0]).abs().max()) <= 1
+        assert float((got[1] - want[1]).abs().max()) <= 1
+    bits, boxes, areas = ms.mask_stats_fused(il, frame)
+    w_bits, w_boxes, w_areas = ms.mask_stats_plain(il, frame.m_h, frame.m_wt, ch, cw)
+    assert torch.equal(bits, w_bits) and torch.equal(boxes, w_boxes)
+    assert torch.equal(areas, w_areas)
+
+
+def test_stability_kernel_refuses_a_dense_matrix(device):
+    """A matrix with more than four taps a row has no band form, so no frame;
+    and the kernel takes contiguous logits only."""
+    dense = np.ones((20, 16), np.float32)
+    with pytest.raises(ValueError):
+        st.ResizeFrame(dense, dense, device)
+    from regda_tpu_torch.ops.resize import _interp_matrix_half_pixel
+    frame = st.ResizeFrame(_interp_matrix_half_pixel(8, 20), _interp_matrix_half_pixel(16, 20),
+                           device)
+    logits = torch.zeros((2, 16, 16), device=device)
+    with pytest.raises(ValueError):
+        st.stability_counts_fused(logits[:, ::2], frame)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('m,s,ch,cw', [(7, 32, 51, 77), (5, 32, 100, 96), (3, 64, 37, 200)])
+def test_mask_stats_kernel_matches_plain(device, m, s, ch, cw, dtype):
+    logits, frame, active = _resize_inputs(device, dtype, m, s, ch, cw, seed=cw)
+    m_h, m_wt = frame.m_h, frame.m_wt
+    logits[m - 1] = -1.0                               # an empty mask
+    before = ms.launches
+    bits, boxes, areas = ms.mask_stats_fused(logits, frame, active=active)
+    assert ms.launches == before + 1
+    w_bits, w_boxes, w_areas = ms.mask_stats_plain(logits, m_h, m_wt, ch, cw, active)
+    torch.cuda.synchronize()
+    assert bits.dtype == torch.uint8 and tuple(bits.shape) == (m, ch, (cw + 7) // 8)
+    diff = ms.unpack_bits(bits, cw) != ms.unpack_bits(w_bits, cw)
+    if bool(diff.any()):     # only where the plain version's logit is within rounding of 0
+        y = torch.matmul(torch.matmul(m_h, logits.float()), m_wt)
+        assert float(y[diff].abs().max()) <= 2.0 ** -20 * float(logits.float().abs().max())
+    else:
+        assert torch.equal(boxes, w_boxes) and torch.equal(areas, w_areas)
+    assert not bool(bits[~active].any() or boxes[~active].any() or areas[~active].any())
+    assert float(areas[m - 1]) == 0 and not bool(boxes[m - 1].any())
+    assert float(areas.max()) > 0

@@ -18,7 +18,9 @@ import sys
 import torch
 import regda_tpu_torch.entry, regda_tpu_torch.ops.lrh, regda_tpu_torch.utils.convert
 import regda_tpu_torch.models.sam.convert, regda_tpu_torch.ops.kernels.layernorm
-import regda_tpu_torch.ops.kernels.rel_attention
+import regda_tpu_torch.ops.kernels.rel_attention, regda_tpu_torch.ops.kernels.stability
+import regda_tpu_torch.ops.kernels.mask_stats, regda_tpu_torch.ops.kernels._band
+import regda_tpu_torch.models.sam.auto, regda_tpu_torch.tools.seg_everything
 from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.ops.lrh import homogenize
 model = build_deeplabv2('resnet18', 6, generator=torch.Generator().manual_seed(0))
@@ -32,6 +34,12 @@ sam, (images, points, pt_labels) = regda_tpu_torch.entry.sam_entry(
 with torch.no_grad():
     masks, iou = sam(images, points, pt_labels)
 assert masks.shape == (2, 3, 16, 16) and iou.shape == (2, 3)
+import numpy as np
+gen, tiles = regda_tpu_torch.entry.sam_regions_entry(
+    'cpu', vit_config='vit_t', img_size=64, tiles=2, tile=48, dtype=torch.float32,
+    points_per_side=2, points_per_batch=4, pred_iou_thresh=-1e9, stability_score_thresh=0.0)
+maps = gen.generate_regions_batch(tiles, area_threshold=4)
+assert len(maps) == 2 and maps[0].shape == (48, 48) and maps[0].dtype == np.int32
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'regda_tpu'))
 print('LOADED', bad)
@@ -43,6 +51,15 @@ def _env():
     env = {k: v for k, v in os.environ.items() if k not in ('XLA_FLAGS',)}
     env['PYTHONPATH'] = str(ROOT)
     return env
+
+
+def test_region_entry_raises_without_a_card():
+    import torch
+    from regda_tpu_torch.entry import sam_regions_entry
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        sam_regions_entry()
 
 
 def test_port_imports_no_jax_at_runtime():
