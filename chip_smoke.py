@@ -58,7 +58,8 @@ Phases (any failure raises, and the exit code is non-zero):
               stock one in bf16 (FAST_VS_STOCK_BF16_STEPS), the IoU gate at
               the median IoU (gated masks equal or exactly zero), ms per
               chunk of both paths at both sizes, peak memory, and a
-              torch.profiler split of one fast chunk with its idle share.
+              torch.profiler split of one fast chunk of 64 and one of 256
+              prompts with its idle share and the two-way kernels by launch.
   5. regions  `sam_regions_entry()`: `SamRegionGenerator` over SAM ViT-B, 8
               tiles of 512^2, the reference's everything-mode configuration
               (32 x 32 points, crop_n_layers=1 with the grid halved, 256
@@ -383,10 +384,12 @@ def phase_attention(device) -> dict:
     # (B, H, kh, kw, D): a global layer of ViT-B at the main path's 5 crops
     # (the plain version's float32 logits are 4 GB) and at one crop, its
     # windowed layer at 5 crops, then ragged shapes: vit_t's head dim, a
-    # single short tile, kh != kw, and vit_h's head dim
+    # single short tile, kh != kw, vit_h's head dim, kh != kw = 64 (a global
+    # layer of a non-square grid), and N = 2304, no multiple of 128 rows
     cases = [(5, 12, 64, 64, 64), (1, 12, 64, 64, 64), (125, 12, 14, 14, 64),
              (3, 2, 14, 14, 32),
-             (2, 2, 4, 4, 32), (2, 3, 5, 7, 64), (2, 2, 14, 14, 80)]
+             (2, 2, 4, 4, 32), (2, 3, 5, 7, 64), (2, 2, 14, 14, 80),
+             (2, 12, 32, 64, 64), (1, 4, 48, 48, 64)]
     max_err = 0.0
     for b, heads, kh, kw, d in cases:
         for dtype, tol in ((torch.float32, dict(rtol=2e-4, atol=2e-4)),
@@ -560,6 +563,44 @@ def _two_way_operands(rng, device, dtype, b, t, n, mlp):
     return (*(a.to(dtype) for a in acts), maskb, w)
 
 
+def _kernel_name(name: str) -> str:
+    """A profiler event's kernel name without its return type, namespace and
+    arguments."""
+    return name.replace('(anonymous namespace)::', '').replace('void ', '').split('(')[0]
+
+
+def kernel_split(fn) -> dict:
+    """Device milliseconds of one call of fn() by kernel name, from
+    torch.profiler (device tracing only; the second profile counts, the first
+    pays for starting the tracer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    split = {}
+    for ev in prof.events():
+        if str(ev.device_type).endswith('CUDA'):
+            name = _kernel_name(ev.name)
+            split[name] = split.get(name, 0.0) + ev.device_time / 1e3
+    return split
+
+
+def two_way_split(device, b: int, t: int = 4096, mlp: int = 2048) -> dict:
+    """One bf16 `two_way_fused` call at the main path's shape, by launch."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.ops.kernels import two_way as tw
+    ops = _two_way_operands(np.random.default_rng(b), device, torch.bfloat16, b, t, 7, mlp)
+    split = kernel_split(lambda: tw.two_way_fused(ops))
+    print(f'[kernel] two_way bf16 B={b} T={t} by launch (torch.profiler, one call): '
+          + ', '.join(f'{k} {v:.4f} ms' for k, v in split.items())
+          + f'; total {sum(split.values()):.4f} ms')
+    return split
+
+
 def phase_two_way(device) -> dict:
     """The two-way transformer kernels against their plain version."""
     import numpy as np
@@ -624,6 +665,7 @@ def phase_two_way(device) -> dict:
               f'bound {bound:.4f} ms ({by}); no single PyTorch call computes it (CUDA events)')
         del ops
         torch.cuda.empty_cache()
+        two_way_split(device, b, t, mlp)
         return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
                 'library_ms': None}
     return {'name': 'two_way_fused', 'route': 'cuda',
@@ -1185,11 +1227,11 @@ def phase_sam_fast(device, model, emb):
 
 def sam_fast_checks_and_timings(device, model, emb, tw_record: dict) -> None:
     """After the launch counts are read: the fast chunk against the stock one
-    in bf16, the gate, ms per chunk of both paths, and a profile. The profile
-    must show as many two-way kernels in one chunk as the C entry counted for
-    each call of the main path (`tw_record`)."""
+    in bf16, the gate, ms per chunk of both paths, and a profile of one chunk
+    of 64 and one of 256 prompts. Each profile must show as many two-way
+    kernels in one chunk as the C entry counted for each call of the main
+    path (`tw_record`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from regda_tpu_torch.ops.kernels.upscale import masks_from_blocked
 
     fast = dict(mask_dtype=torch.bfloat16, blocked_masks=True)
@@ -1237,9 +1279,27 @@ def sam_fast_checks_and_timings(device, model, emb, tw_record: dict) -> None:
                   f'{fast_ms:.3f} ms (peak {fast_peak:.2f} GiB), decode_points {stock_ms:.3f} ms '
                   f'(peak {stock_peak:.2f} GiB)')
 
-        points, labels = _grid_prompts(device, 64)
-        torch.cuda.synchronize()
-        for _ in range(2):   # the first profile pays for starting the tracer
+    for count in (64, 256):
+        _fast_chunk_profile(model, emb, count, fast, tw_record)
+
+
+# the kernels of one two-way call, as the profiler names them
+TWO_WAY_TAGS = ('prep_kernel', 'mid_kernel', 'final_kernel', 'pass_wgmma_kernel',
+                'pass_simt_kernel')
+
+
+def _fast_chunk_profile(model, emb, count: int, fast: dict, tw_record: dict) -> None:
+    """One fast chunk of `count` prompts under torch.profiler (device tracing
+    only; the second profile counts, the first pays for starting the tracer):
+    device time by kind, idle share, and the two-way kernels by launch, whose
+    number must be what the C entry counted per call of the main path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    points, labels = _grid_prompts(emb.device, count)
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 model.decode_points_fast(emb[:1], points, labels, **fast)
@@ -1255,18 +1315,19 @@ def sam_fast_checks_and_timings(device, model, emb, tw_record: dict) -> None:
             first_us = min(first_us, ev.time_range.start)
             last_us = max(last_us, ev.time_range.end)
             name = ev.name.lower()
-            two_way = [t for t in ('prep_kernel', 'mid_kernel', 'final_kernel', 'rows_mma',
-                                   'cols_mma') if t in name]
+            two_way = [t for t in TWO_WAY_TAGS if t in name]
             kind = ('two_way' if two_way else 'upscale' if 'upscale_' in name else
                     'gemm' if any(t in name for t in ('gemm', 'nvjet', 'cutlass', 'xmma'))
                     else 'other')
             kinds[kind] += ev.device_time / 1e3
             if two_way:
                 two_way_events += 1
-                detail[two_way[0]] = detail.get(two_way[0], 0.0) + ev.device_time / 1e3
+                key = _kernel_name(ev.name)
+                detail[key] = detail.get(key, 0.0) + ev.device_time / 1e3
     total = sum(kinds.values())
     if total <= 0:
-        print('[sam] one fast chunk under torch.profiler: not measured (no device time)')
+        print(f'[sam] one fast chunk of {count} under torch.profiler: not measured (no device '
+              f'time)')
         return
     per_call, rest = divmod(tw_record['cuda_launches'], tw_record['launches'])
     if rest or two_way_events != per_call:
@@ -1276,14 +1337,14 @@ def sam_fast_checks_and_timings(device, model, emb, tw_record: dict) -> None:
     # busy and idle from this one profiled call: the device's span runs from
     # its first kernel's start to its last kernel's end
     span_ms = (last_us - first_us) / 1e3
-    print(f'[sam] one fast chunk of 64 under torch.profiler: {total:.3f} ms in '
+    print(f'[sam] one fast chunk of {count} under torch.profiler: {total:.3f} ms in '
           f'{device_events} kernels and copies ({two_way_events} of them two_way\'s, as its '
           f'C entry counted): '
           + ', '.join(f'{k} {v:.3f} ms ({100 * v / total:.1f} %)' for k, v in kinds.items())
           + f'; device idle {100 * (1 - total / span_ms):.1f} % of the {span_ms:.3f} ms from '
           f'its first kernel\'s start to its last kernel\'s end (the profiled call took '
           f'{wall_ms:.3f} ms of wall time); two_way by launch: '
-          + ', '.join(f'{k} {v:.3f}' for k, v in detail.items()))
+          + ', '.join(f'{k} {v:.4f}' for k, v in detail.items()))
 
 
 def _regions_profile(gen, tile) -> str:
@@ -1301,7 +1362,7 @@ def _regions_profile(gen, tile) -> str:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     tags = {'rel_attention': ('rel_attn',), 'layernorm': ('layernorm_kernel',),
-            'two_way': ('prep_kernel', 'mid_kernel', 'final_kernel', 'rows_mma', 'cols_mma'),
+            'two_way': TWO_WAY_TAGS,
             'upscale': ('upscale_',), 'stability': ('stability_kernel',),
             'mask_stats': ('mask_stats_kernel',),
             'gemm': ('gemm', 'nvjet', 'cutlass', 'xmma')}

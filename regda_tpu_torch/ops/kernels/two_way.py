@@ -5,7 +5,7 @@ kernels' wrapper and the plain version.
 Replaces the Pallas TPU kernel `two_way_fused`
 (regda_tpu/models/sam/pallas_twoway.py:474, pallas_call at :460) with
 `csrc/two_way.cu`; the source note there says what bounds it on the card and
-how one call's launches divide the chain.
+how one call's five launches divide the chain.
 
 `two_way_fused` takes the kernels for CUDA tensors and `two_way_plain` (the
 counterpart of `pallas_twoway._twoway_stock`) for CPU tensors; any other
@@ -47,12 +47,16 @@ WKEYS = ('wo0', 'bo0', 'n40w', 'n40b',
          'wqf', 'bqf', 'wkf', 'bkf', 'wvf', 'bvf', 'wof', 'bof',
          'nfw', 'nfb')
 
-COL_TILE = 128  # rows per tile of the column passes (csrc/two_way.cu)
+# the matrices that the bfloat16 token kernels take transposed, (out, in), as
+# the B operands of their tensor-core products
+TRANSPOSED = ('wo0', 'wqt', 'wvt', 'wot', 'w1', 'w2', 'wki', 'wvi', 'woi', 'wqf', 'wvf', 'wof')
+
+PASS_TILE = 64   # rows per tile of the passes (csrc/two_way.cu)
 MAX_SPLITS = 255  # partials of one prompt that the token kernels can merge
 
 # calls of `two_way_fused` that went to the kernels in this process, and the
-# kernels that those calls queued (one call is a chain: prompt prep, then
-# twice a row pass, a column pass and token work)
+# kernels that those calls queued (one call is a chain of five: prompt prep,
+# pass A, token work, pass B, closing token work)
 launches = 0
 cuda_launches = 0
 
@@ -130,7 +134,7 @@ def _library():
     if _lib is None:
         lib = _build.load_library('two_way')
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.two_way_launch.argtypes = [ptr] * 14 + [i32] * 6 + [ptr, ctypes.POINTER(i32)]
+        lib.two_way_launch.argtypes = [ptr] * 13 + [i32] * 6 + [ptr, ctypes.POINTER(i32)]
         lib.two_way_launch.restype = ctypes.c_int
         lib.two_way_error_string.argtypes = [ctypes.c_int]
         lib.two_way_error_string.restype = ctypes.c_char_p
@@ -179,12 +183,16 @@ def _check(operands, num_heads: int):
 
 
 def column_splits(batch: int, t: int, sms: int) -> tuple[int, int]:
-    """(rows per block, blocks per prompt) of the column passes: whole tiles
-    of COL_TILE rows, as few blocks per prompt as still give the card two
-    blocks per SM (at most MAX_SPLITS), and no block without a row."""
-    tiles = -(-t // COL_TILE)
-    splits = max(1, min(tiles, MAX_SPLITS, -(-2 * sms // batch)))
-    rows = -(-tiles // splits) * COL_TILE
+    """(rows per block, blocks per prompt) of the two passes: whole tiles of
+    PASS_TILE rows. A pass runs one block an SM, so a block takes about its
+    tiles plus one (staging its operands costs about a tile) and the call
+    that times the waves of blocks: the split count (at most MAX_SPLITS)
+    that makes this least, the fewest blocks among equals; no block without
+    a row."""
+    tiles = -(-t // PASS_TILE)
+    splits = min(range(1, min(tiles, MAX_SPLITS) + 1),
+                 key=lambda s: (-(-batch * s // sms) * (-(-tiles // s) + 1), s))
+    rows = -(-tiles // splits) * PASS_TILE
     return rows, -(-t // rows)
 
 
@@ -206,13 +214,17 @@ def _launch(operands, num_heads: int):
         return (torch.empty((0, t, c), dtype=dt, device=dev),
                 torch.empty((0, NP, c), dtype=dt, device=dev))
     # small operands: cast and lay out as the kernels read them (matrices in
-    # the compute dtype, biases and norm parameters in float32)
+    # the compute dtype, in bfloat16 the token products' transposed; biases
+    # and norm parameters in float32)
     acts = [x.to(dt).contiguous() for x in (ktok0, vtok0, q1, qpe, keys0, pe, qimg0)]
     maskb = maskb.float().contiguous()
     weights = []
     for k in WKEYS:
-        if w[k].ndim == 2:   # one copy casts and lays out a transposed view
-            weights.append(torch.empty(w[k].shape, dtype=dt, device=dev).copy_(w[k]))
+        if w[k].ndim == 2:
+            m = w[k].t() if dt == torch.bfloat16 and k in TRANSPOSED else w[k]
+            if m.dtype != dt or not m.is_contiguous() or m.data_ptr() % 16:
+                m = torch.empty(m.shape, dtype=dt, device=dev).copy_(m)   # casts, lays out
+            weights.append(m)
         else:
             weights.append(w[k].float().contiguous())
     for x in acts + weights:
@@ -220,13 +232,12 @@ def _launch(operands, num_heads: int):
             raise ValueError('two_way: tensors must start on a 16-byte boundary')
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, splits = column_splits(b, t, sms)
-    keys1 = torch.empty((b, t, c), dtype=dt, device=dev)
     keys2 = torch.empty((b, t, c), dtype=dt, device=dev)
     qout = torch.empty((b, NP, c), dtype=dt, device=dev)
     hn = num_heads * NP
-    # per prompt: five (64, 256)-sized operands of the row and column passes
+    # per prompt: five (64, 256)-sized operands of the two passes
     scratch = torch.empty((b, 5, hn * c), dtype=dt, device=dev)
-    # per prompt: the column passes' partial maxima, sums and products, the
+    # per prompt: the passes' partial maxima, sums and products, the
     # float32 query state and one bias row
     partials = torch.empty((b, splits * (hn * c + 2 * hn) + NP * c + hn),
                            dtype=torch.float32, device=dev)
@@ -236,13 +247,13 @@ def _launch(operands, num_heads: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.two_way_launch(
             *(x.data_ptr() for x in acts), maskb.data_ptr(),
-            ctypes.cast(table, ctypes.c_void_p), keys1.data_ptr(), keys2.data_ptr(),
+            ctypes.cast(table, ctypes.c_void_p), keys2.data_ptr(),
             qout.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
             b, t, mlp, rows, splits, int(dt == torch.bfloat16), stream,
             ctypes.byref(queued))
     if err == _INVALID_VALUE and queued.value == 0:   # refused before any launch
         raise ValueError(f'two_way: the kernels refused B = {b}, T = {t}, MLP {mlp}')
-    if err:   # keys1 and the scratch buffers may be half written
+    if err:   # keys2 and the scratch buffers may be half written
         raise RuntimeError(f'two_way kernel launch failed after {queued.value} of the '
                            f'chain\'s kernels were queued: '
                            + lib.two_way_error_string(err).decode())

@@ -117,7 +117,9 @@ def test_layernorm_kernel_rejects_other_widths_and_strides(device):
 @pytest.mark.parametrize('b,heads,kh,kw,d', [(5, 12, 64, 64, 64), (1, 12, 64, 64, 64),
                                              (25, 12, 14, 14, 64),
                                              (3, 2, 14, 14, 32), (2, 2, 4, 4, 32),
-                                             (2, 3, 5, 7, 64), (2, 2, 14, 14, 80)])
+                                             (2, 3, 5, 7, 64), (2, 2, 14, 14, 80),
+                                             (2, 12, 32, 64, 64), (1, 4, 48, 48, 64),
+                                             (1, 2, 3, 100, 64)])
 def test_rel_attention_kernel_matches_plain(device, b, heads, kh, kw, d, dtype):
     rng = np.random.default_rng(kh * kw + d)
     n = kh * kw
@@ -207,7 +209,8 @@ def _two_way_operands(rng, device, dtype, b, t, n, mlp):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,t,n,mlp', [(64, 4096, 7, 2048), (1, 4096, 7, 2048),
-                                       (3, 64, 5, 512), (2, 200, 8, 256), (300, 64, 7, 256)])
+                                       (3, 64, 5, 512), (2, 200, 8, 256), (300, 64, 7, 256),
+                                       (256, 1000, 7, 2048)])
 def test_two_way_kernel_matches_plain(device, b, t, n, mlp, dtype):
     ops = _two_way_operands(np.random.default_rng(b + t), device, dtype, b, t, n, mlp)
     before = tw.launches
@@ -310,6 +313,29 @@ def test_two_way_counts_the_kernels_it_queues(device):
         per_call.add(tw.cuda_launches - before[1])
     torch.cuda.synchronize()
     assert len(per_call) == 1 and per_call.pop() > 0   # the chain is the same for all sizes
+    assert tw.cuda_launches - before[1] == 5   # prep, pass A, mid, pass B, final
+
+
+def test_two_way_bf16_allocates_no_key_scratch(device):
+    """keys1 never reaches device memory: at 64 prompts the call holds its
+    cast weights, keys2 and the queries, the scratch slots and the partials,
+    and less than 64 MB besides, where a (B, T, 256) keys1 buffer is 134 MB."""
+    b, t, mlp = 64, 4096, 2048
+    ops = _two_way_operands(np.random.default_rng(4), device, torch.bfloat16, b, t, 7, mlp)
+    tw.two_way_fused(ops)   # first use: the library and the allocator's pools
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    keys2, qout = tw.two_way_fused(ops)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    _, splits = tw.column_splits(b, t, sms)
+    weights = sum(w.numel() * 2 for w in ops[8].values() if w.ndim == 2)
+    scratch = b * 5 * 64 * 256 * 2
+    partials = b * (splits * (64 * 256 + 2 * 64) + 8 * 256 + 64) * 4
+    held = weights + keys2.numel() * 2 + qout.numel() * 2 + scratch + partials
+    assert peak <= held + 64 * 2 ** 20, (peak, held)
 
 
 def test_fast_kernel_gradients_go_through_the_plain_versions(device):

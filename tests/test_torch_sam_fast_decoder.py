@@ -153,7 +153,7 @@ def test_two_way_column_splits_cover_every_row(b, t):
     """What the launch checks: whole tiles per block, every row in one block,
     no block without a row, no more blocks than the token kernels merge."""
     rows, splits = tw.column_splits(b, t, sms=132)
-    assert rows % tw.COL_TILE == 0 and 1 <= splits <= tw.MAX_SPLITS
+    assert rows % tw.PASS_TILE == 0 and 1 <= splits <= tw.MAX_SPLITS
     assert (splits - 1) * rows < t <= splits * rows
 
 
