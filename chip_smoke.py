@@ -13,7 +13,9 @@ Phases (any failure raises, and the exit code is non-zero):
               tests' own) and in bf16 (LN_BF16_TOL, ATTN_BF16_TOL below);
               the fused mask head and the two-way transformer in f32
               (rtol/atol 2e-4) and in bf16 (UPSCALE_BF16_STEPS,
-              TWOWAY_BF16_STEPS below), gated prompts exactly zero; the
+              TWOWAY_BF16_STEPS below), gated prompts exactly zero, and the
+              mask head's bf16 gelu table equal to the exact erf form on all
+              65,536 bf16 inputs, bit for bit; the
               stability counts (both entries; STAB_* below) at one chunk's
               768 candidates on the 512^2 and 343^2 frames, and the mask
               statistics (STATS_ZERO_BAND below) at the main path's two
@@ -93,8 +95,15 @@ train path does.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and the line before that the
-kernels' JSON record. Without a CUDA device the script exits non-zero at
-once and prints no result.
+kernels' JSON record, one for each of the JAX package's nine `pallas_call`s
+(the blocked stability entry stands for both blocked TPU kernels). Without a
+CUDA device the script exits non-zero at once and prints no result.
+
+    python3 chip_smoke.py --parent DIR
+
+also times the mask-head and stability kernels of the checkout at DIR (the
+parent commit, unpacked by `git archive`) beside this checkout's, in turns,
+in phase 1.
 """
 
 from __future__ import annotations
@@ -464,7 +473,23 @@ def phase_upscale(device) -> dict:
     """The fused mask-head kernels against their plain version."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from regda_tpu_torch.ops.kernels import upscale as up
+
+    # the bf16 kernel's gelu is a table built from the exact erf form: it must
+    # give the exact form's bits for every one of the 65,536 bf16 inputs
+    fast, exact = up.gelu_table_check(device)
+    torch.cuda.synchronize()
+    if not torch.equal(fast, exact):
+        bad = (fast != exact).nonzero().flatten()[:8].tolist()
+        raise AssertionError(f'upscale: the bf16 gelu differs from the exact form at '
+                             f'{int((fast != exact).sum())} inputs, e.g. bits {bad}')
+    x = torch.arange(65536, dtype=torch.int32, device=device).to(torch.int16).view(torch.bfloat16)
+    finite = torch.isfinite(x.float())
+    torch_bits = F.gelu(x).view(torch.int16)
+    print(f'[kernel] upscale: the bf16 gelu equals the exact erf form on all 65536 bf16 inputs, '
+          f'bit for bit ({int((torch_bits != exact)[finite].sum())} of the '
+          f'{int(finite.sum())} finite ones differ from torch\'s bf16 gelu on the card)')
 
     rng = np.random.default_rng(12)
     # (B, H, W, M, blocked, out dtype or None for the compute dtype, active):
@@ -693,6 +718,14 @@ def _resize_case(rng, device, dtype, m, s, frame, main: bool, scale: float = 2.0
     return logits.to(device, dtype), ResizeFrame(m_h, m_w, device)
 
 
+def _band_flops(fr, dtype, m: int, sw: int) -> float:
+    """Operations of the separable resize that these matrices need for m
+    candidates: a multiply and an add per non-zero tap, sw values a row-tap
+    and ch values a column-tap (the band's zero taps add nothing)."""
+    h_taps, w_taps = fr.bands(dtype)[1], fr.bands(dtype)[3]
+    return m * 2.0 * (float((h_taps != 0).sum()) * sw + float((w_taps != 0).sum()) * fr.ch)
+
+
 def _gate(rng, device, m: int, kind):
     import torch
     if kind is None:
@@ -776,11 +809,10 @@ def phase_stability(device) -> tuple[dict, dict]:
         plain_ms = cuda_ms(lambda: st.stability_counts_plain(logits, fr.m_h, fr.m_wt, 1.0), 3,
                            warmup=1)
         # the logits read once, the band forms once, two counts a candidate
-        # written; 4 + 4 taps (a multiply and an add each) per pixel of the
-        # row-resized strip and of the frame, on the f32 units
+        # written; the non-zero taps of the row-resized strip's values and of
+        # the frame's pixels, a multiply and an add each, on the f32 units
         nbytes = logits.numel() * 2 + (ch + cw) * 20 + 768 * 8
-        flops = 768 * 8.0 * (ch * 256 + ch * cw)
-        bound, by = bound_ms(nbytes, flops, 'f32')
+        bound, by = bound_ms(nbytes, _band_flops(fr, torch.bfloat16, 768, 256), 'f32')
         dense_ms = 768 * 2.0 * (ch * 256 * 256 + ch * 256 * cw) / PEAK_FLOPS['bf16'] * 1e3
         print(f'[kernel] stability {entry} bf16 M=768 S=256 frame {ch}x{cw}: kernel {ms:.4f} ms, '
               f'plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; the dense products of the '
@@ -792,7 +824,6 @@ def phase_stability(device) -> tuple[dict, dict]:
     src = 'regda_tpu_torch/csrc/stability.cu'
     blocked = {'name': 'stability_counts_blocked', 'route': 'cuda', 'source': src,
                'replaces': 'regda_tpu/models/sam/pallas_stability.py:415',
-               'also_replaces': 'regda_tpu/models/sam/pallas_stability.py:303',
                'max_abs_err': max_err['blocked'], **times('blocked', (512, 512)),
                'frame_343': times('blocked', (343, 343))}
     fused = {'name': 'stability_counts_fused', 'route': 'cuda', 'source': src,
@@ -800,6 +831,59 @@ def phase_stability(device) -> tuple[dict, dict]:
              'max_abs_err': max_err['fused'], **times('fused', (512, 512)),
              'frame_343': times('fused', (343, 343))}
     return blocked, fused
+
+
+def parent_times(parent) -> dict:
+    """The mask-head and stability kernels of another checkout (`parent`, the
+    root of one, e.g. the parent commit unpacked by `git archive`), built from
+    its own sources, timed in turns with this checkout's on the same inputs
+    at the main path's shapes: parent, this, this, parent. The C entries of
+    both must take the same arguments. Returns {case: {'parent': [ms, ms],
+    'this': [ms, ms]}}."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from regda_tpu_torch.ops.kernels import _build
+    from regda_tpu_torch.ops.kernels import stability as st
+    from regda_tpu_torch.ops.kernels import upscale as up
+
+    csrc = Path(parent) / 'regda_tpu_torch' / 'csrc'
+    libs = {}
+    for mod, name in ((up, 'upscale'), (st, 'stability')):
+        this, other = mod._library(), _build.load_library(name, csrc)
+        for fn in (f'{name}_launch', f'{name}_error_string'):
+            getattr(other, fn).argtypes = getattr(this, fn).argtypes
+            getattr(other, fn).restype = getattr(this, fn).restype
+        libs[mod] = {'this': this, 'parent': other}
+    rng = np.random.default_rng(16)
+    cases = {}
+    for b in (64, 256):
+        args = _upscale_inputs(rng, 'cuda', torch.bfloat16, b, 64, 64, 3)
+        cases[f'upscale bf16 B={b} HW=4096 M=3 blocked'] = (
+            up, lambda args=args: up.upscale_hyper_masks(*args, out_dtype=torch.bfloat16,
+                                                         blocked=True), 20)
+    for ch in (512, 343):
+        logits, fr = _resize_case(rng, 'cuda', torch.bfloat16, 768, 256, (ch, ch), True)
+        blk = st.block_masks(logits, 64, 64).contiguous()
+        cases[f'stability blocked bf16 M=768 frame {ch}^2'] = (
+            st, lambda blk=blk, fr=fr: st.stability_counts_blocked(blk, fr, 64, 64, 1.0), 50)
+        cases[f'stability fused bf16 M=768 frame {ch}^2'] = (
+            st, lambda x=logits, fr=fr: st.stability_counts_fused(x, fr, 1.0), 50)
+    out = {}
+    for case, (mod, fn, iters) in cases.items():
+        reads = {'parent': [], 'this': []}
+        for which in ('parent', 'this', 'this', 'parent'):
+            mod._lib = libs[mod][which]
+            reads[which].append(cuda_ms(fn, iters))
+        mod._lib = libs[mod]['this']
+        out[case] = reads
+        print(f'[kernel] {case}: parent ' + ' / '.join(f'{t:.4f}' for t in reads['parent'])
+              + ' ms, this checkout ' + ' / '.join(f'{t:.4f}' for t in reads['this'])
+              + ' ms (CUDA events, read in turns: parent, this, this, parent)')
+    del cases
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_mask_stats(device) -> dict:
@@ -874,9 +958,9 @@ def phase_mask_stats(device) -> dict:
         plain_ms = cuda_ms(lambda: ms_.mask_stats_plain(logits, fr.m_h, fr.m_wt, ch, cw), 3,
                            warmup=1)
         # the logits read once, the band forms once; bits, boxes and areas
-        # written once; 4 + 4 taps per pixel on the f32 units
+        # written once; the non-zero taps, on the f32 units
         nbytes = logits.numel() * 2 + (ch + cw) * 20 + m * (ch * ((cw + 7) // 8) + 20)
-        bound, by = bound_ms(nbytes, m * 8.0 * (ch * 256 + ch * cw), 'f32')
+        bound, by = bound_ms(nbytes, _band_flops(fr, torch.float32, m, 256), 'f32')
         dense_ms = m * 2.0 * (ch * 256 * 256 + ch * 256 * cw) / PEAK_FLOPS['f32'] * 1e3
         print(f'[kernel] mask_stats bf16 logits M={m} S=256 frame {ch}x{cw}: kernel {ms:.4f} ms, '
               f'plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; dense float32 products '
@@ -1544,7 +1628,13 @@ def phase_regions(device, **entry_kwargs) -> dict:
     return counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description='Smoke test of regda_tpu_torch on one GPU.')
+    parser.add_argument('--parent', default=None,
+                        help='root of another checkout (e.g. the parent commit, unpacked): '
+                             'its mask-head and stability kernels are timed beside these')
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on a GPU',
@@ -1570,6 +1660,11 @@ def main() -> int:
     up_record = phase_upscale(device)
     tw_record = phase_two_way(device)
     stb_record, stf_record = phase_stability(device)
+    if args.parent:
+        parent = parent_times(args.parent)
+        up_record['parent_ms'] = {k: v for k, v in parent.items() if k.startswith('upscale')}
+        for rec, entry in ((stb_record, 'blocked'), (stf_record, 'fused')):
+            rec['parent_ms'] = {k: v for k, v in parent.items() if f' {entry} ' in k}
     stats_record = phase_mask_stats(device)
     phase_check(device)
     # the interleaved stability entry's path: the small generator run with
@@ -1611,8 +1706,11 @@ def main() -> int:
                      (tw_record, 'two_way'), (up_record, 'upscale')):
         rec['launches_regions'] = counts[key]
 
+    # one record per pallas_call: the blocked entry replaces both blocked TPU
+    # kernels, so its record stands for each
+    stb_v1 = {**stb_record, 'replaces': 'regda_tpu/models/sam/pallas_stability.py:303'}
     print(json.dumps({'kernels': [record, ln_record, attn_record, tw_record, up_record,
-                                  stb_record, stf_record, stats_record]}))
+                                  stb_record, stb_v1, stf_record, stats_record]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -817,9 +817,6 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 constexpr int kTile = 64;       // rows per tile of the bfloat16 passes
 constexpr int kLdKt = kD + 8;   // [8][kLdKt]: layer 0's k tokens, plain rows

@@ -135,11 +135,28 @@ def sam_from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     return state
 
 
+# What a segment-anything state_dict may hold or lack beyond the port's own
+# keys, as the JAX converter (regda_tpu/models/sam/convert.py) allows: the
+# mask-prompt branch of the prompt encoder, which the port does not have (it
+# takes point prompts only), and the constants `pixel_mean` / `pixel_std`.
+UNUSED_PREFIXES = ('prompt_encoder.mask_downscaling.',)
+OPTIONAL_KEYS = frozenset({'pixel_mean', 'pixel_std'})
+
+
+def load_sam_state_dict(model: torch.nn.Module, state: Mapping) -> None:
+    """Load a segment-anything state_dict into the port's `Sam`, in place.
+    Raises KeyError naming every key that is missing (beyond OPTIONAL_KEYS)
+    or unexpected (beyond UNUSED_PREFIXES): a misnamed key would otherwise
+    leave its parameter at its random initial value."""
+    result = model.load_state_dict(state, strict=False)
+    missing = sorted(set(result.missing_keys) - OPTIONAL_KEYS)
+    unexpected = sorted(k for k in result.unexpected_keys if not k.startswith(UNUSED_PREFIXES))
+    if missing or unexpected:
+        raise KeyError(f'missing {missing}, unexpected {unexpected}')
+
+
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     """Load a JAX `Sam`'s variables into the port's `Sam`, in place. Every
     parameter of the model must be covered; only the `pixel_mean` and
     `pixel_std` constants may be absent from the tree."""
-    result = model.load_state_dict(sam_from_jax_variables(variables), strict=False)
-    missing = set(result.missing_keys) - {'pixel_mean', 'pixel_std'}
-    if missing or result.unexpected_keys:
-        raise KeyError(f'missing {sorted(missing)}, unexpected {result.unexpected_keys}')
+    load_sam_state_dict(model, sam_from_jax_variables(variables))

@@ -23,7 +23,7 @@ BUILD_DIR = PACKAGE_DIR / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-lineinfo', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[Path, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -35,25 +35,26 @@ def find_nvcc() -> str:
                        'the CUDA kernels of regda_tpu_torch build at first use')
 
 
-def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to, keyed by its sources and flags."""
+def library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    """Where `<csrc_dir>/<name>.cu` builds to, keyed by its sources and flags."""
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob('*.cu*')):  # the .cu and any .cuh it includes
+    for src in sorted(Path(csrc_dir).glob('*.cu*')):  # the .cu and any .cuh it includes
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` if its library is missing, then dlopen it."""
-    if name in _loaded:
-        return _loaded[name]
-    lib_path = library_path(name)
+def load_library(name: str, csrc_dir: Path = CSRC_DIR) -> ctypes.CDLL:
+    """Compile `<csrc_dir>/<name>.cu` (by default this package's) if its
+    library is missing, then dlopen it."""
+    lib_path = library_path(name, csrc_dir)
+    if lib_path in _loaded:
+        return _loaded[lib_path]
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, str(CSRC_DIR / f'{name}.cu')]
+        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, str(Path(csrc_dir) / f'{name}.cu')]
         res = subprocess.run(cmd, capture_output=True, text=True)
         log = lib_path.with_suffix('.log')
         log.write_text(' '.join(cmd) + '\n' + res.stdout + res.stderr)
@@ -62,8 +63,8 @@ def load_library(name: str) -> ctypes.CDLL:
             raise RuntimeError(f'nvcc failed for {name}.cu (rc {res.returncode}):'
                                f'\n{res.stdout}{res.stderr}')
         os.replace(tmp, lib_path)  # atomic: concurrent builders agree
-    _loaded[name] = ctypes.CDLL(str(lib_path))
-    return _loaded[name]
+    _loaded[lib_path] = ctypes.CDLL(str(lib_path))
+    return _loaded[lib_path]
 
 
 def build_log(name: str) -> str:

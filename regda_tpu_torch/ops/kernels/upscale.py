@@ -91,6 +91,8 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.upscale_launch.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
         lib.upscale_launch.restype = ctypes.c_int
+        lib.upscale_gelu_check.argtypes = [ptr] * 3
+        lib.upscale_gelu_check.restype = ctypes.c_int
         lib.upscale_error_string.argtypes = [ctypes.c_int]
         lib.upscale_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -209,6 +211,23 @@ def upscale_hyper_masks(src, hyper_in, k1, b1, lnw, lnb, k2, b2,
         return _forward(src, hyper_in, k1, b1, lnw, lnb, k2, b2, out_dtype, active,
                         blocked)
     return _Upscale.apply(out_dtype, src, hyper_in, k1, b1, lnw, lnb, k2, b2)
+
+
+def gelu_table_check(device='cuda') -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's gelu on the card for all 65,536 bf16 bit patterns,
+    beside the exact erf form evaluated there: (fast, exact), int16 tensors
+    of the bf16 result bits, index = input bits. The kernel reads a table
+    built from the exact form and takes the exact form outside it, so the
+    two must be equal bit for bit."""
+    lib = _library()
+    fast = torch.empty(65536, dtype=torch.int16, device=device)
+    exact = torch.empty_like(fast)
+    with torch.cuda.device(fast.device):
+        err = lib.upscale_gelu_check(fast.data_ptr(), exact.data_ptr(),
+                                     torch.cuda.current_stream(fast.device).cuda_stream)
+    if err:
+        raise RuntimeError('upscale gelu check failed: ' + lib.upscale_error_string(err).decode())
+    return fast, exact
 
 
 def upscale_params_from_decoder(decoder, dtype: torch.dtype):

@@ -10,7 +10,10 @@ stage 2's LRH reads.
       [--checkpoint ckpts/sam_vit_b_01ec64.pth] [--model-type vit_b] [--device cuda]
 
 `--checkpoint` is a segment-anything .pth: its state_dict names are the
-port's own. Without it the model runs with seeded random weights (the
+port's own. Every parameter must be in it under its name, or the load raises
+KeyError; only the mask-prompt branch (`prompt_encoder.mask_downscaling.*`,
+which the port has no place for) and `pixel_mean` / `pixel_std` may be extra
+or absent. Without it the model runs with seeded random weights (the
 official checkpoint is not in the repository), and the region maps are not
 SAM's. The run is on the card unless `--device cpu` asks otherwise.
 """
@@ -28,6 +31,7 @@ from PIL import Image
 from regda_tpu_torch.entry import _device, _seeded_sam
 from regda_tpu_torch.models.sam.auto import (Sam, SamAutomaticMaskGenerator,
                                              SamRegionGenerator, regions_from_anns)
+from regda_tpu_torch.models.sam.convert import load_sam_state_dict
 
 
 def build_parser() -> ArgumentParser:
@@ -63,7 +67,7 @@ def load_model(args) -> Sam:
         return _seeded_sam(device, args.model_type, args.img_size, torch.bfloat16, 0)
     model = Sam(vit_config=args.model_type, img_size=args.img_size)
     state = torch.load(args.checkpoint, map_location='cpu', weights_only=True)
-    model.load_state_dict(state, strict=False)   # pixel_mean / pixel_std may be absent
+    load_sam_state_dict(model, state)   # a misnamed or missing key raises KeyError
     print(f'loaded SAM weights from {args.checkpoint}')
     return model.to(device).eval()
 

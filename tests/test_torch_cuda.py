@@ -260,6 +260,36 @@ def test_upscale_kernel_matches_plain(device, b, h, w, m, blocked, gated, dtype)
         assert bool((got[~active] == 0).all())
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,h,w,m,blocked,gate,out_dtype', [
+    (1, 5, 7, 1, True, None, None), (1, 5, 7, 4, False, None, None),
+    (2, 9, 9, 4, True, 'none', None), (3, 5, 7, 3, True, 'all', None),
+    (3, 5, 7, 3, False, 'all', None), (2, 9, 9, 4, False, None, torch.float32),
+    (1, 64, 64, 4, True, None, torch.float32), (300, 8, 8, 3, True, 'some', None)])
+def test_upscale_kernel_tile_edges(device, b, h, w, m, blocked, gate, out_dtype, dtype):
+    """The bf16 kernel's tiles of 64 pixels: HW below a tile and past a
+    whole number of them (5 x 7, 9 x 9), one prompt (one consumer warpgroup
+    idle), more tiles than two per SM, M = 1 and 4, float32 output, every
+    prompt gated and none, both layouts."""
+    rng = np.random.default_rng(b * h * w + m)
+    args = _upscale_args(rng, device, dtype, b, h, w, m)
+    active = None
+    if gate is not None:
+        active = torch.from_numpy(rng.random(b) < 0.5).to(device)
+        active[:] = {'all': False, 'none': True}.get(gate, active)
+    odt = out_dtype or dtype
+    got = up.upscale_hyper_masks(*args, out_dtype=odt, active=active, blocked=blocked)
+    want = up.upscale_plain(*args, odt, active, blocked)
+    torch.cuda.synchronize()
+    assert got.dtype == odt and got.shape == want.shape
+    _assert_kernel_close(got, want, torch.float32 if odt == dtype == torch.float32
+                         else torch.bfloat16, 4)
+    if active is not None:
+        assert bool((got[~active] == 0).all())
+    if gate == 'all':
+        assert not bool(got.any())
+
+
 def test_upscale_kernel_rejects_other_widths_and_dtypes(device):
     rng = np.random.default_rng(0)
     args = _upscale_args(rng, device, torch.float32, 1, 4, 4, 3)
@@ -411,6 +441,39 @@ def test_stability_kernel_matches_plain(device, m, s, ch, cw, entry, dtype):
     assert float((union - want_u).abs().max()) <= limit
     assert not bool(inter[~active].any() or union[~active].any())
     assert float(union.max()) > 0
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('entry', ['blocked', 'fused'])
+@pytest.mark.parametrize('m,s,ch,cw,gate', [
+    (5, 32, 20, 300, 'some'), (3, 256, 343, 343, 'some'), (4, 32, 51, 77, None),
+    (2, 64, 40, 700, None), (6, 32, 51, 77, 'all')])
+def test_stability_kernel_strip_edges(device, m, s, ch, cw, gate, entry, dtype):
+    """The kernel's strips and column ownership: a frame shorter than one
+    strip, widths that are no multiple of the 256 threads (300, 343) and
+    wider than the columns a thread keeps in registers (700), the main
+    path's 343^2 frame from 256^2 logits, and every candidate gated."""
+    logits, frame, active = _resize_inputs(device, dtype, m, s, ch, cw, seed=ch + cw)
+    if gate is None:
+        active = None
+    elif gate == 'all':
+        active[:] = False
+    if entry == 'blocked':
+        blk = st.block_masks(logits, s // 4, s // 4).contiguous()
+        inter, union = st.stability_counts_blocked(blk, frame, s // 4, s // 4, 1.0, active)
+    else:
+        inter, union = st.stability_counts_fused(logits, frame, 1.0, active)
+    want_i, want_u = st.stability_counts_plain(logits, frame.m_h, frame.m_wt, 1.0, active)
+    torch.cuda.synchronize()
+    limit = 1 + (1e-5 if dtype == torch.float32 else 1e-4) * ch * cw
+    assert float((inter - want_i).abs().max()) <= limit
+    assert float((union - want_u).abs().max()) <= limit
+    if active is not None:
+        assert not bool(inter[~active].any() or union[~active].any())
+    if gate == 'all':
+        assert not bool(inter.any() or union.any())
+    else:
+        assert float(union.max()) > 0
 
 
 def test_stability_kernel_non_square_source(device):

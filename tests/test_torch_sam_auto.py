@@ -21,6 +21,8 @@ adapter, so that it checks the port's post-processing, from logits to region
 map, against an independent implementation.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,7 @@ from regda_tpu.models.sam.auto import Sam as JaxSam
 from regda_tpu_torch.models.sam import auto
 from regda_tpu_torch.models.sam.auto import Sam
 from regda_tpu_torch.models.sam.convert import load_jax_variables
+from regda_tpu_torch.models.sam.vit import VIT_CONFIGS
 from tests.sam_postproc_oracle import OracleMaskGenerator
 
 IMG = 128
@@ -406,6 +409,65 @@ def test_seg_everything_cli_writes_region_tifs(models, tmp_path, fast):
         assert out.dtype == np.int32 and out.shape == (64, 64) and out.any()
         if fast and name != 'tile1.png':     # the first batch's and the ragged one's
             np.testing.assert_array_equal(out, gen.generate_regions(tile, area_threshold=16))
+
+
+def _upstream_checkpoint(models):
+    """A segment-anything state_dict at the CLI test's vit_t size: the
+    upstream-faithful oracle's keys, its mask-prompt branch
+    (`prompt_encoder.mask_downscaling.*`) and pixel constants included, with
+    every key the port shares taken from the port's model (the two layouts
+    agree, test_torch_sam_model.py)."""
+    from tests.torch_sam_oracle import SamOracle
+    state = SamOracle(img_size=IMG, **VIT_CONFIGS['vit_t']).state_dict()
+    port = models[2].state_dict()
+    assert any(k.startswith('prompt_encoder.mask_downscaling.') for k in state)
+    assert set(port) <= set(state)
+    return {k: port.get(k, v).clone() for k, v in state.items()}
+
+
+def _cli_args(ckpt):
+    from regda_tpu_torch.tools import seg_everything
+    return seg_everything.build_parser().parse_args(
+        ['--checkpoint', str(ckpt), '--model-type', 'vit_t', '--img-size', str(IMG),
+         '--device', 'cpu'])
+
+
+def test_seg_everything_cli_loads_an_upstream_checkpoint(models, tmp_path):
+    """The CLI loads a segment-anything checkpoint that holds the mask-prompt
+    branch, and every parameter of its model is the saved one."""
+    from regda_tpu_torch.tools import seg_everything
+    state = _upstream_checkpoint(models)
+    ckpt = tmp_path / 'sam_upstream.pth'
+    torch.save(state, ckpt)
+    loaded = seg_everything.load_model(_cli_args(ckpt)).state_dict()
+    assert set(loaded) <= set(state)
+    for key, value in loaded.items():
+        assert torch.equal(value, state[key].to(value.dtype)), key
+
+
+@pytest.mark.parametrize('key', ['mask_decoder.iou_token.weight',
+                                 'image_encoder.blocks.1.attn.qkv.weight'])
+def test_seg_everything_cli_rejects_a_renamed_key(models, tmp_path, key):
+    """One key renamed: the CLI raises KeyError naming it, instead of leaving
+    that parameter at its random value."""
+    from regda_tpu_torch.tools import seg_everything
+    state = _upstream_checkpoint(models)
+    state[key.replace('weight', 'kernel')] = state.pop(key)
+    ckpt = tmp_path / 'sam_renamed.pth'
+    torch.save(state, ckpt)
+    with pytest.raises(KeyError, match=re.escape(key)) as err:
+        seg_everything.load_model(_cli_args(ckpt))
+    assert key.replace('weight', 'kernel') in str(err.value)
+
+
+def test_seg_everything_cli_rejects_a_missing_key(models, tmp_path):
+    from regda_tpu_torch.tools import seg_everything
+    state = _upstream_checkpoint(models)
+    del state['prompt_encoder.not_a_point_embed.weight']
+    ckpt = tmp_path / 'sam_missing.pth'
+    torch.save(state, ckpt)
+    with pytest.raises(KeyError, match='not_a_point_embed'):
+        seg_everything.load_model(_cli_args(ckpt))
 
 
 def test_seg_everything_cli_needs_a_card_by_default(tmp_path):
