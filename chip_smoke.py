@@ -26,7 +26,11 @@ Phases (any failure raises, and the exit code is non-zero):
               bound (bytes over 3.35 TB/s or operations over the peak rate,
               whichever is larger) and, where one PyTorch call computes the
               same function, that call as a yardstick that the port itself
-              never makes.
+              never makes. The histogram and the mask statistics are read
+              with their inputs L2-warm and L2-cold (COLD_BYTES below); the
+              histogram also in a CUDA graph of back-to-back calls (the
+              device's pace, and its kernel's device time from
+              torch.profiler) beside the host's microseconds a call.
      check    small-size agreement of the card with the CPU: the ResNet-101
               eval forward (f32, rtol/atol 1e-4) and one resnet18 stage-2
               step with dropout off (losses rtol 1e-4), `homogenize` at
@@ -101,13 +105,15 @@ CUDA device the script exits non-zero at once and prints no result.
 
     python3 chip_smoke.py --parent DIR
 
-also times the mask-head and stability kernels of the checkout at DIR (the
-parent commit, unpacked by `git archive`) beside this checkout's, in turns,
-in phase 1.
+also times the mask-head, stability, mask-statistics and histogram kernels
+of the checkout at DIR (the parent commit, unpacked by `git archive`) beside
+this checkout's, in turns, in phase 1 (the histogram through each side's own
+wrapper, warm, cold, and cold in a CUDA graph).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -135,6 +141,76 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# Inputs read L2-cold: a timing loop rotates through copies of its inputs that
+# together exceed this many bytes, twice the H100's 50 MB L2, so that no call
+# finds its inputs in the cache from the call before.
+COLD_BYTES = 100_000_000
+
+
+def cold_copies(*tensors) -> list:
+    """Copies of `tensors` (the first is the tensors themselves) that together
+    hold more than COLD_BYTES."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(COLD_BYTES // nbytes)]
+
+
+def rotating(fn, copies):
+    """fn(*copy) for the next copy at each call."""
+    turn = itertools.count()
+    return lambda: fn(*copies[next(turn) % len(copies)])
+
+
+def graph_ms(fn, calls: int, kernel: str, replays: int = 10) -> tuple[float, float]:
+    """(milliseconds per call, kernel milliseconds per call) of fn() captured
+    `calls` times in one CUDA graph and replayed: the first is the device's
+    pace without the host's cost between calls (CUDA events around the
+    replays), the second the device time of the kernels whose name holds
+    `kernel` alone (torch.profiler over one replay; a profile that does not
+    show one such kernel a call is taken again)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # first use (libraries, allocator) outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, replays, warmup=2) / calls
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        times = [ev.device_time for ev in prof.events()
+                 if str(ev.device_type).endswith('CUDA') and kernel in ev.name]
+        if len(times) == calls:
+            break
+    else:
+        raise AssertionError(f'torch.profiler showed {len(times)} {kernel} kernels in a graph '
+                             f'of {calls} calls')
+    del graph
+    return ms, sum(times) / 1e3 / calls
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of fn(), back to back, without waiting for
+    the device between calls (it keeps up unless the host outpaces it)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -261,7 +337,17 @@ def phase_kernel(device) -> dict:
     lab_np, reg_np = _hist_inputs(rng, 'sam', 8, 512 * 512, 1024, 6)
     lab = torch.from_numpy(lab_np).to(device)
     reg = torch.from_numpy(reg_np).to(device)
-    ms = cuda_ms(lambda: sh.segment_hist_labels(lab, reg, 1024, 6), 200)
+    call = lambda lab, reg: sh.segment_hist_labels(lab, reg, 1024, 6)  # noqa: E731
+    ms = cuda_ms(lambda: call(lab, reg), 200)
+    copies = cold_copies(lab, reg)
+    ms_cold = cuda_ms(rotating(call, copies), 200)
+    graph_cold, kernel_cold = graph_ms(rotating(call, copies), 4 * len(copies),
+                                       'segment_hist_kernel')
+    graph_warm, kernel_warm = graph_ms(lambda: call(lab, reg), 4 * len(copies),
+                                       'segment_hist_kernel')
+    us = host_us(lambda: call(lab, reg))
+    ncopies = len(copies)
+    del copies
     plain_ms = cuda_ms(lambda: sh.segment_hist_labels_plain(lab, reg, 1024, 6), 200)
     # yardstick: the one library call at the plain version's core, the
     # scatter_add_ into a zeroed histogram, given the bin index ready-made
@@ -275,13 +361,22 @@ def phase_kernel(device) -> dict:
     # each id read once (two int32 per pixel), one count per region and
     # class, in float32, written once; one add per pixel
     bound, by = bound_ms(2 * lab.numel() * 4 + 8 * bins * 4, lab.numel(), 'f32')
-    print(f'[kernel] segment_hist B=8 N=512^2 R=1024 C=6: kernel {ms:.4f} ms, '
-          f'plain {plain_ms:.4f} ms, scatter_add_ alone {library_ms:.4f} ms, bound '
-          f'{bound:.4f} ms ({by}) (CUDA events, 200 calls, inputs L2-warm)')
+    print(f'[kernel] segment_hist B=8 N=512^2 R=1024 C=6: wrapper calls {ms:.4f} ms warm, '
+          f'{ms_cold:.4f} ms cold (CUDA events, 200 calls back to back: the host\'s pace '
+          f'or the device\'s, whichever is slower); in one CUDA graph of '
+          f'{4 * ncopies} calls {graph_warm:.4f} ms warm, {graph_cold:.4f} ms cold a call, '
+          f'of which the histogram kernel {kernel_warm:.4f} / {kernel_cold:.4f} ms '
+          f'(torch.profiler); the host {us:.1f} us a wrapper call; plain {plain_ms:.4f} ms, '
+          f'scatter_add_ alone {library_ms:.4f} ms, bound {bound:.4f} ms ({by}) (inputs warm: '
+          f'one copy, 16.8 MB, in the L2; cold: {ncopies} copies in turns, '
+          f'{ncopies * 2 * lab.numel() * 4 / 1e6:.1f} MB)')
     return {'name': 'segment_hist_labels', 'route': 'cuda',
             'source': 'regda_tpu_torch/csrc/segment_hist.cu',
             'replaces': 'regda_tpu/ops/pallas/segment_hist.py:82',
-            'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+            'max_abs_err': max_err, 'ms': ms, 'ms_cold': ms_cold,
+            'graph_ms': graph_warm, 'graph_ms_cold': graph_cold,
+            'kernel_device_ms': kernel_warm, 'kernel_device_ms_cold': kernel_cold,
+            'host_us_per_call': us, 'plain_ms': plain_ms,
             'bound_ms': bound, 'bound_by': by, 'library_ms': library_ms}
 
 
@@ -833,55 +928,117 @@ def phase_stability(device) -> tuple[dict, dict]:
     return blocked, fused
 
 
+def _parent_module(parent, name: str):
+    """The wrapper module `regda_tpu_torch/ops/kernels/<name>.py` of another
+    checkout, loaded under another name, whose library is built from that
+    checkout's sources: the wrapper as that checkout called its kernel."""
+    import importlib.util
+    from pathlib import Path
+
+    from regda_tpu_torch.ops.kernels import _build
+    root = Path(parent) / 'regda_tpu_torch'
+    spec = importlib.util.spec_from_file_location(
+        f'parent_{name}', root / 'ops' / 'kernels' / f'{name}.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    class ParentBuild:
+        @staticmethod
+        def load_library(lib_name):
+            return _build.load_library(lib_name, root / 'csrc')
+    mod._build = ParentBuild
+    return mod
+
+
 def parent_times(parent) -> dict:
-    """The mask-head and stability kernels of another checkout (`parent`, the
-    root of one, e.g. the parent commit unpacked by `git archive`), built from
-    its own sources, timed in turns with this checkout's on the same inputs
-    at the main path's shapes: parent, this, this, parent. The C entries of
-    both must take the same arguments. Returns {case: {'parent': [ms, ms],
-    'this': [ms, ms]}}."""
+    """The mask-head, stability, mask-statistics and histogram kernels of
+    another checkout (`parent`, the root of one, e.g. the parent commit
+    unpacked by `git archive`), built from its own sources, timed in turns
+    with this checkout's on the same inputs at the main path's shapes:
+    parent, this, this, parent. The first three are called through this
+    checkout's wrapper with the parent's library swapped in (their C entries
+    take the same arguments); the histogram through the parent's own wrapper
+    as well, which zeroed its output with a launch of its own. Returns {case:
+    {'parent': [ms, ms], 'this': [ms, ms]}}."""
     from pathlib import Path
 
     import numpy as np
     import torch
     from regda_tpu_torch.ops.kernels import _build
+    from regda_tpu_torch.ops.kernels import mask_stats as ms_
+    from regda_tpu_torch.ops.kernels import segment_hist as sh
     from regda_tpu_torch.ops.kernels import stability as st
     from regda_tpu_torch.ops.kernels import upscale as up
 
     csrc = Path(parent) / 'regda_tpu_torch' / 'csrc'
     libs = {}
-    for mod, name in ((up, 'upscale'), (st, 'stability')):
+    for mod, name in ((up, 'upscale'), (st, 'stability'), (ms_, 'mask_stats')):
         this, other = mod._library(), _build.load_library(name, csrc)
         for fn in (f'{name}_launch', f'{name}_error_string'):
             getattr(other, fn).argtypes = getattr(this, fn).argtypes
             getattr(other, fn).restype = getattr(this, fn).restype
         libs[mod] = {'this': this, 'parent': other}
+
+    def swapped(mod, fn):   # fn with `mod` calling each side's library in turn
+        def pick(which):
+            mod._lib = libs[mod][which]
+            return fn
+        return pick
+
+    def events(iters):
+        return lambda fn: cuda_ms(fn, iters)
     rng = np.random.default_rng(16)
     cases = {}
     for b in (64, 256):
         args = _upscale_inputs(rng, 'cuda', torch.bfloat16, b, 64, 64, 3)
-        cases[f'upscale bf16 B={b} HW=4096 M=3 blocked'] = (
+        cases[f'upscale bf16 B={b} HW=4096 M=3 blocked'] = (swapped(
             up, lambda args=args: up.upscale_hyper_masks(*args, out_dtype=torch.bfloat16,
-                                                         blocked=True), 20)
+                                                         blocked=True)), events(20))
     for ch in (512, 343):
         logits, fr = _resize_case(rng, 'cuda', torch.bfloat16, 768, 256, (ch, ch), True)
         blk = st.block_masks(logits, 64, 64).contiguous()
-        cases[f'stability blocked bf16 M=768 frame {ch}^2'] = (
-            st, lambda blk=blk, fr=fr: st.stability_counts_blocked(blk, fr, 64, 64, 1.0), 50)
-        cases[f'stability fused bf16 M=768 frame {ch}^2'] = (
-            st, lambda x=logits, fr=fr: st.stability_counts_fused(x, fr, 1.0), 50)
+        cases[f'stability blocked bf16 M=768 frame {ch}^2'] = (swapped(
+            st, lambda blk=blk, fr=fr: st.stability_counts_blocked(blk, fr, 64, 64, 1.0)),
+            events(50))
+        cases[f'stability fused bf16 M=768 frame {ch}^2'] = (swapped(
+            st, lambda x=logits, fr=fr: st.stability_counts_fused(x, fr, 1.0)), events(50))
+    for m, ch in ((256, 512), (1024, 343)):
+        logits, fr = _resize_case(rng, 'cuda', torch.bfloat16, m, 256, (ch, ch), True)
+        copies = cold_copies(logits)
+        cases[f'mask_stats bf16 M={m} frame {ch}^2 warm'] = (swapped(
+            ms_, lambda x=logits, fr=fr: ms_.mask_stats_fused(x, fr)), events(50))
+        cases[f'mask_stats bf16 M={m} frame {ch}^2 cold'] = (swapped(
+            ms_, rotating(lambda x, fr=fr: ms_.mask_stats_fused(x, fr), copies)), events(50))
+    parent_sh = _parent_module(parent, 'segment_hist')
+    lab_np, reg_np = _hist_inputs(rng, 'sam', 8, 512 * 512, 1024, 6)
+    lab, reg = (torch.from_numpy(a).cuda() for a in (lab_np, reg_np))
+    copies = cold_copies(lab, reg)
+    hist = {'this': lambda lab, reg: sh.segment_hist_labels(lab, reg, 1024, 6),
+            'parent': lambda lab, reg: parent_sh.segment_hist_labels(lab, reg, 1024, 6)}
+    for which in hist:   # the same counts from both, and the first use outside the timing
+        if not torch.equal(hist[which](lab, reg), sh.segment_hist_labels_plain(lab, reg, 1024, 6)):
+            raise AssertionError(f'segment_hist of the {which} checkout != plain')
+    calls = 4 * len(copies)
+    for protocol, timer in (('warm', events(200)), ('cold', events(200)),
+                            ('cold, CUDA graph',
+                             lambda fn: graph_ms(fn, calls, 'segment_hist_kernel')[0]),
+                            ('cold, kernel device time',
+                             lambda fn: graph_ms(fn, calls, 'segment_hist_kernel')[1])):
+        pick = (lambda which, p=protocol: (lambda: hist[which](lab, reg)) if p == 'warm'
+                else rotating(hist[which], copies))
+        cases[f'segment_hist B=8 N=512^2 R=1024 C=6 {protocol}'] = (pick, timer)
     out = {}
-    for case, (mod, fn, iters) in cases.items():
+    for case, (pick, timer) in cases.items():
         reads = {'parent': [], 'this': []}
         for which in ('parent', 'this', 'this', 'parent'):
-            mod._lib = libs[mod][which]
-            reads[which].append(cuda_ms(fn, iters))
-        mod._lib = libs[mod]['this']
+            reads[which].append(timer(pick(which)))
         out[case] = reads
         print(f'[kernel] {case}: parent ' + ' / '.join(f'{t:.4f}' for t in reads['parent'])
               + ' ms, this checkout ' + ' / '.join(f'{t:.4f}' for t in reads['this'])
               + ' ms (CUDA events, read in turns: parent, this, this, parent)')
-    del cases
+    for mod in libs:
+        mod._lib = libs[mod]['this']
+    del cases, copies
     torch.cuda.empty_cache()
     return out
 
@@ -955,6 +1112,9 @@ def phase_mask_stats(device) -> dict:
         ch, cw = frame
         logits, fr = _resize_case(rng, device, torch.bfloat16, m, 256, frame, True)
         ms = cuda_ms(lambda: ms_.mask_stats_fused(logits, fr), 50)
+        copies = cold_copies(logits)
+        ms_cold = cuda_ms(rotating(lambda x: ms_.mask_stats_fused(x, fr), copies), 50)
+        del copies
         plain_ms = cuda_ms(lambda: ms_.mask_stats_plain(logits, fr.m_h, fr.m_wt, ch, cw), 3,
                            warmup=1)
         # the logits read once, the band forms once; bits, boxes and areas
@@ -962,13 +1122,15 @@ def phase_mask_stats(device) -> dict:
         nbytes = logits.numel() * 2 + (ch + cw) * 20 + m * (ch * ((cw + 7) // 8) + 20)
         bound, by = bound_ms(nbytes, _band_flops(fr, torch.float32, m, 256), 'f32')
         dense_ms = m * 2.0 * (ch * 256 * 256 + ch * 256 * cw) / PEAK_FLOPS['f32'] * 1e3
-        print(f'[kernel] mask_stats bf16 logits M={m} S=256 frame {ch}x{cw}: kernel {ms:.4f} ms, '
-              f'plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; dense float32 products '
-              f'would be {dense_ms:.4f} ms at the f32 peak); no single PyTorch call computes it '
-              f'(CUDA events, 50 calls)')
+        print(f'[kernel] mask_stats bf16 logits M={m} S=256 frame {ch}x{cw}: kernel {ms:.4f} ms '
+              f'warm, {ms_cold:.4f} ms cold, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; '
+              f'dense float32 products would be {dense_ms:.4f} ms at the f32 peak); no single '
+              f'PyTorch call computes it (CUDA events, 50 calls; warm: one copy of the '
+              f'{logits.numel() * 2 / 1e6:.1f} MB of logits; cold: copies in turns, over '
+              f'{COLD_BYTES / 1e6:.0f} MB)')
         torch.cuda.empty_cache()
-        return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
-                'library_ms': None}
+        return {'ms': ms, 'ms_cold': ms_cold, 'plain_ms': plain_ms, 'bound_ms': bound,
+                'bound_by': by, 'library_ms': None}
     return {'name': 'mask_stats_fused', 'route': 'cuda',
             'source': 'regda_tpu_torch/csrc/mask_stats.cu',
             'replaces': 'regda_tpu/models/sam/pallas_stats.py:148',
@@ -1633,7 +1795,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description='Smoke test of regda_tpu_torch on one GPU.')
     parser.add_argument('--parent', default=None,
                         help='root of another checkout (e.g. the parent commit, unpacked): '
-                             'its mask-head and stability kernels are timed beside these')
+                             'its mask-head, stability, mask-statistics and histogram '
+                             'kernels are timed beside these')
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1660,12 +1823,13 @@ def main(argv=None) -> int:
     up_record = phase_upscale(device)
     tw_record = phase_two_way(device)
     stb_record, stf_record = phase_stability(device)
+    stats_record = phase_mask_stats(device)
     if args.parent:
         parent = parent_times(args.parent)
-        up_record['parent_ms'] = {k: v for k, v in parent.items() if k.startswith('upscale')}
-        for rec, entry in ((stb_record, 'blocked'), (stf_record, 'fused')):
-            rec['parent_ms'] = {k: v for k, v in parent.items() if f' {entry} ' in k}
-    stats_record = phase_mask_stats(device)
+        for rec, prefix in ((up_record, 'upscale '), (stb_record, 'stability blocked '),
+                            (stf_record, 'stability fused '), (stats_record, 'mask_stats '),
+                            (record, 'segment_hist ')):
+            rec['parent_ms'] = {k: v for k, v in parent.items() if k.startswith(prefix)}
     phase_check(device)
     # the interleaved stability entry's path: the small generator run with
     # blocked_masks=False (the full-width path below takes the blocked entry)

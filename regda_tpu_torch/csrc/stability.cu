@@ -19,7 +19,8 @@
 //   inter = #{Y > +offset},  union = #{Y > -offset}   over the (ch, cw) frame
 //
 // the precision contract of the TPU kernels and of `stability_counts_plain`.
-// Each sum is `dot4`'s: four taps in index order with fused multiply-adds.
+// Each sum is `dot_taps`'s (band.cuh): the taps in index order with fused
+// multiply-adds.
 //
 // What bounds it on an H100: a composed half-pixel resize matrix has at most
 // four adjacent non-zeros a row, so the function is a separable interpolation
@@ -53,14 +54,13 @@
 //    16-byte read of Y1t is 8 rows of one source column (4 in float32).
 //  * Zero taps: a row or column whose taps end in zeros adds exact zeros to
 //    a finite sum, so each warp uses only as many taps as the most any of
-//    its rows (columns) needs; `dot4`'s order is kept for the rest.
+//    its rows (columns) needs; the order of the sum is kept for the rest.
 // Counts are whole numbers below 2^24, exact in float32, and each block
 // writes its own two: no atomics, the same result in every run. A candidate
 // whose gate flag is 0 costs one block that writes two zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -70,36 +70,17 @@
 
 namespace {
 
-constexpr int kSrcRowsMax = 40;   // staged source rows a strip may need
-constexpr int kCols = 2;          // output columns a thread keeps in registers
-constexpr int kSmemMax = 232448 - 1024;
-
+// Y1 is rounded to the logits' type
 template <typename T>
-struct Elem;
+__device__ __forceinline__ T round_to(float v);
 template <>
-struct Elem<float> {
-  static __device__ __forceinline__ void unpack(const uint4& q, float (&v)[4]) {
-    v[0] = __uint_as_float(q.x);
-    v[1] = __uint_as_float(q.y);
-    v[2] = __uint_as_float(q.z);
-    v[3] = __uint_as_float(q.w);
-  }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
 template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ void unpack(const uint4& q, float (&v)[8]) {
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ __nv_bfloat16 round(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
+__device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // n / d for n < 2^16 and 1 <= d < 2^16, given magic = ceil(2^32 / d) (0 for d = 1)
 __device__ __forceinline__ int div_small(int n, int d, uint32_t magic) {
@@ -107,29 +88,6 @@ __device__ __forceinline__ int div_small(int n, int d, uint32_t magic) {
 }
 __device__ __forceinline__ uint32_t div_magic(int d) {
   return d == 1 ? 0u : 0xffffffffu / (uint32_t)d + 1u;
-}
-
-// taps up to and including the last non-zero one (1 .. 4): the rest add exact
-// zeros to a finite sum, and skipping them changes no result
-__device__ __forceinline__ int used_taps(const float4& t) {
-  return t.w != 0.f ? 4 : t.z != 0.f ? 3 : t.y != 0.f ? 2 : 1;
-}
-// dot4's sum over the first kN taps, in its order
-template <int kN>
-__device__ __forceinline__ float dot_taps(const float4& t, const float (&v)[kTaps]) {
-  float acc = t.x * v[0];
-  if (kN > 1) acc = fmaf(t.y, v[1], acc);
-  if (kN > 2) acc = fmaf(t.z, v[2], acc);
-  if (kN > 3) acc = fmaf(t.w, v[3], acc);
-  return acc;
-}
-
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
 }
 
 // shared-memory layout, in elements of T
@@ -149,29 +107,6 @@ struct StabSmem {
     return sizeof(T) * ((size_t)2 * src_rows * pitch_s + (size_t)columns * kPitchT);
   }
 };
-
-// output rows [u0, u0 + n) of a strip read staged source rows [lo, lo + span)
-struct Strip {
-  int u0, n, lo, span;
-};
-
-// The next strip from u0: up to kStripRows rows whose source rows fit the
-// staging buffer (one row always fits). Every warp computes the same.
-__device__ Strip plan_strip(const int* h_start, int u0, int ch, int src_rows,
-                            int lane) {
-  int n = min(kStripRows, ch - u0);
-  while (true) {
-    int lo = lane < n ? h_start[u0 + lane] : INT_MAX;
-    int hi = lane < n ? h_start[u0 + lane] + kTaps : INT_MIN;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = min(lo, __shfl_xor_sync(kFullMask, lo, o));
-      hi = max(hi, __shfl_xor_sync(kFullMask, hi, o));
-    }
-    if (hi - lo <= src_rows || n == 1) return Strip{u0, n, lo, hi - lo};
-    n = (n + 1) / 2;
-  }
-}
 
 template <typename T, bool kBlocked>
 __global__ void __launch_bounds__(kThreads, 3)
@@ -312,7 +247,7 @@ stability_kernel(const T* __restrict__ x, const int* __restrict__ active,
           for (int e = 0; e < kE; ++e) {
             const float tv[kTaps] = {v[0][e], kN > 1 ? v[1][e] : 0.f, kN > 2 ? v[2][e] : 0.f,
                                      kN > 3 ? v[3][e] : 0.f};
-            const T y = Elem<T>::round(dot_taps<kN>(t, tv));
+            const T y = round_to<T>(dot_taps<kN>(t, tv));
             if (vec) {
               y1t[(col0 + e) * S::kPitchT + lane] = y;
             } else if (p + e < sw) {

@@ -6,8 +6,10 @@ kernel's source note says what bounds it on the card and how it is laid out.
 
 `segment_hist_labels` takes the kernel for CUDA tensors and the plain
 `scatter_add_` version for CPU tensors; any other device raises. There is no
-fallback: a CUDA input that the kernel cannot take raises. `launches` counts
-kernel launches (plain-version calls do not count).
+fallback: a CUDA input that the kernel cannot take raises (R * C beyond a
+block's shared memory, ids not 16-byte aligned). A call is one kernel launch:
+the kernel writes every count, so the output is not zeroed first. `launches`
+counts kernel launches (plain-version calls do not count).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ launches = 0
 MAX_PIXELS = 1 << 24  # counts stay exact in float32 below 2**24
 
 _lib = None
+_max_bins = {}   # device index -> largest R * C a block's shared memory holds
 
 
 def segment_hist_labels_plain(labels: torch.Tensor, regions: torch.Tensor,
@@ -82,23 +85,28 @@ def _launch(labels, regions, num_regions, num_classes) -> torch.Tensor:
     global launches
     lib = _library()
     b, n = labels.shape
+    dev = labels.device.index
     with torch.cuda.device(labels.device):
-        max_bins = lib.segment_hist_max_bins()
-        if max_bins < 0:
-            raise RuntimeError('segment_hist: ' + lib.segment_hist_error_string(
-                -max_bins).decode())
-        if num_regions * num_classes > max_bins:
+        if dev not in _max_bins:
+            max_bins = lib.segment_hist_max_bins()
+            if max_bins < 0:
+                raise RuntimeError('segment_hist: ' + lib.segment_hist_error_string(
+                    -max_bins).decode())
+            _max_bins[dev] = max_bins
+        if num_regions * num_classes > _max_bins[dev]:
             raise ValueError(
                 f'R * C * 4 = {num_regions * num_classes * 4} bytes of histogram '
-                f'exceed the {max_bins * 4} bytes of shared memory a block can use')
+                f'exceed the {_max_bins[dev] * 4} bytes of shared memory a block can use')
         for t in (labels, regions):
             if t.data_ptr() % 16:
                 raise ValueError('segment_hist: labels and regions must start '
                                  'on a 16-byte boundary')
-        out = torch.zeros((b, num_regions, num_classes), dtype=torch.float32,
-                          device=labels.device)
         if b == 0 or n == 0:   # nothing to launch, and nothing counted
-            return out
+            return torch.zeros((b, num_regions, num_classes), dtype=torch.float32,
+                               device=labels.device)
+        # the kernel writes every count: no zeroing launch
+        out = torch.empty((b, num_regions, num_classes), dtype=torch.float32,
+                          device=labels.device)
         stream = torch.cuda.current_stream(labels.device).cuda_stream
         err = lib.segment_hist_labels_launch(
             labels.data_ptr(), regions.data_ptr(), out.data_ptr(), b, n,

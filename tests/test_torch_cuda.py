@@ -63,6 +63,70 @@ def test_segment_hist_rejects_oversized_histogram(device):
     labels = torch.zeros((1, 64), dtype=torch.int32, device=device)
     with pytest.raises(ValueError):
         sh.segment_hist_labels(labels, labels, 1 << 20, 6)
+    # refused before the empty-batch early return too
+    empty = torch.zeros((0, 64), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):
+        sh.segment_hist_labels(empty, empty, 1 << 20, 6)
+
+
+def _hist_case(device, b, n, num_regions, num_classes, seed):
+    rng = np.random.default_rng(seed)
+    labels = torch.from_numpy(rng.integers(-1, num_classes + 1, (b, n)).astype(np.int32))
+    regions = torch.from_numpy(rng.integers(-2, num_regions + 2, (b, n)).astype(np.int32))
+    want = sh.segment_hist_labels_plain(labels, regions, num_regions, num_classes)
+    return labels.to(device), regions.to(device), want
+
+
+@pytest.mark.parametrize('b,n', [(2, 17), (3, 5), (1, 63), (5, 1), (4, 67), (2, 4 * 16 + 3)])
+def test_segment_hist_cluster_edges(device, b, n):
+    """Images smaller than 8 blocks x 4 pixels, so that the last blocks of an
+    image's cluster count nothing and still take part in the reduction, and
+    pixel counts off a multiple of 4 (every row after the first starts
+    unaligned)."""
+    labels, regions, want = _hist_case(device, b, n, 37, 5, seed=n)
+    got = sh.segment_hist_labels(labels, regions, 37, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_segment_hist_at_the_shared_memory_limit(device):
+    """R * C at the opt-in limit of a block's shared memory is taken, one more
+    region is refused."""
+    max_bins = sh._library().segment_hist_max_bins()
+    assert max_bins == torch.cuda.get_device_properties(device).shared_memory_per_block_optin // 4
+    num_classes = 2
+    num_regions = max_bins // num_classes
+    labels, regions, want = _hist_case(device, 2, 300_001, num_regions, num_classes, seed=1)
+    got = sh.segment_hist_labels(labels, regions, num_regions, num_classes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError):
+        sh.segment_hist_labels(labels, regions, num_regions + 1, num_classes)
+    # a refused launch leaves no error behind for the next one
+    assert torch.equal(sh.segment_hist_labels(labels, regions, num_regions, num_classes)
+                       .cpu(), want)
+
+
+def test_segment_hist_writes_every_count_in_one_launch(device):
+    """The output is not cleared first, so memory the allocator hands back full
+    of NaN must come back as exact counts; a call is one kernel and no
+    memset, and two calls agree bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    labels, regions, want = _hist_case(device, 8, 512 * 512, 1024, 6, seed=3)
+    for _ in range(3):
+        junk = torch.full((8, 1024, 6), float('nan'), device=device)
+        del junk
+        got = sh.segment_hist_labels(labels, regions, 1024, 6)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+    again = sh.segment_hist_labels(labels, regions, 1024, 6)
+    assert torch.equal(again, got)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sh.segment_hist_labels(labels, regions, 1024, 6)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if str(ev.device_type).endswith('CUDA')]
+    assert len(names) == 1 and 'segment_hist_kernel' in names[0], names
 
 
 def test_homogenize_card_matches_cpu(device):
@@ -531,4 +595,88 @@ def test_mask_stats_kernel_matches_plain(device, m, s, ch, cw, dtype):
         assert torch.equal(boxes, w_boxes) and torch.equal(areas, w_areas)
     assert not bool(bits[~active].any() or boxes[~active].any() or areas[~active].any())
     assert float(areas[m - 1]) == 0 and not bool(boxes[m - 1].any())
+    assert float(areas.max()) > 0
+
+
+def _check_mask_stats(logits, frame, active):
+    """The kernel against the plain version: bits equal except where the plain
+    version's resized logit is within 2^-20 of the largest |logit| of 0, boxes
+    and areas those of the kernel's own bits, padding bits and gated slots 0."""
+    ch, cw = frame.ch, frame.cw
+    before = ms.launches
+    bits, boxes, areas = ms.mask_stats_fused(logits, frame, active=active)
+    assert ms.launches == before + 1
+    w_bits, w_boxes, w_areas = ms.mask_stats_plain(logits, frame.m_h, frame.m_wt, ch, cw, active)
+    torch.cuda.synchronize()
+    assert bits.dtype == torch.uint8 and tuple(bits.shape) == (len(logits), ch, (cw + 7) // 8)
+    got = ms.unpack_bits(bits, cw).bool()
+    diff = got != ms.unpack_bits(w_bits, cw).bool()
+    if bool(diff.any()):
+        y = torch.matmul(torch.matmul(frame.m_h, logits.float()), frame.m_wt)
+        assert float(y[diff].abs().max()) <= 2.0 ** -20 * float(logits.float().abs().max())
+    else:
+        assert torch.equal(bits, w_bits)
+    eye_h, eye_w = (torch.eye(n, device=logits.device) for n in (ch, cw))
+    own = ms.mask_stats_plain(torch.where(got, 1.0, -1.0), eye_h, eye_w, ch, cw)
+    assert torch.equal(boxes, own[1]) and torch.equal(areas, own[2])
+    assert not bool(ms.unpack_bits(bits, 8 * bits.shape[-1])[..., cw:].any())
+    if active is not None:
+        assert not bool(bits[~active].any() or boxes[~active].any() or areas[~active].any())
+    return bits, boxes, areas
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('m,s,ch,cw,gate', [
+    (7, 32, 51, 77, None), (7, 32, 51, 77, 'some'), (5, 32, 100, 96, 'all'),
+    (5, 32, 100, 96, 'none'), (3, 64, 37, 200, 'some'), (4, 32, 20, 700, 'some')])
+def test_mask_stats_kernel_ragged_frames_and_gates(device, m, s, ch, cw, gate, dtype):
+    """phase 1's interleaved ragged frames and gates: a frame shorter than one
+    strip, widths off a multiple of 32 and of the bytes of a word, a frame
+    wider than the columns the threads keep in registers (700), every slot
+    on, some, none."""
+    logits, frame, active = _resize_inputs(device, dtype, m, s, ch, cw, seed=ch * cw)
+    logits[m - 1] = -1.0                               # an empty mask
+    if gate is None:
+        active = None
+    elif gate != 'some':
+        active[:] = gate == 'all'
+    bits, boxes, areas = _check_mask_stats(logits, frame, active)
+    if gate != 'none':
+        assert float(areas[m - 1]) == 0 and not bool(boxes[m - 1].any())
+        assert float(areas.max()) > 0
+    else:
+        assert not bool(bits.any() or boxes.any() or areas.any())
+
+
+@pytest.mark.parametrize('cw', [1, 7, 9, 77, 32, 64, 96])
+def test_mask_stats_kernel_byte_order(device, cw):
+    """The packed rows at widths that end inside the first byte, inside a
+    32-bit word, and on whole words: a mask whose columns follow a pattern
+    that tells neighbouring bits and bytes apart, bit for bit against
+    numpy.packbits of the plain version's mask."""
+    from regda_tpu_torch.ops.resize import _interp_matrix_half_pixel
+    ch, s, sw = 45, 32, max(cw, 4)
+    frame = ms.ResizeFrame(_interp_matrix_half_pixel(s, ch), np.eye(cw, sw, dtype=np.float32),
+                           device)
+    rng = np.random.default_rng(cw)
+    cols = np.where(np.arange(sw) % 3 == 1, 1.0, -1.0) * (1 + rng.random(sw))
+    rows = 1 + np.arange(s)[:, None] / s               # positive: a column keeps its sign
+    logits = np.stack([cols * rows, -cols * rows[::-1]]).astype(np.float32)
+    bits, _, _ = _check_mask_stats(torch.from_numpy(logits).to(device), frame, None)
+    mask = np.broadcast_to(np.stack([cols[:cw] > 0, cols[:cw] < 0])[:, None], (2, ch, cw))
+    assert np.array_equal(bits.cpu().numpy(), np.packbits(mask, axis=-1))
+
+
+@pytest.mark.parametrize('crop', [512, 343])
+def test_mask_stats_kernel_main_path_frames(device, crop):
+    """The main path's composed matrices (256^2 bf16 logits to a 512^2 crop 0
+    and a 343^2 layer-1 crop), 64 slots, half of them gated."""
+    from regda_tpu_torch.models.sam.auto import composed_resize_matrices
+    rng = np.random.default_rng(crop)
+    m_h, m_w = composed_resize_matrices(1024, (1024, 1024, crop, crop), 256)
+    frame = ms.ResizeFrame(m_h, m_w, device)
+    logits = torch.from_numpy((rng.normal(size=(64, 256, 256)) * 2).astype(np.float32))
+    logits = logits.to(device, torch.bfloat16)
+    active = torch.from_numpy(np.arange(64) % 2 == 0).to(device)
+    _, _, areas = _check_mask_stats(logits, frame, active)
     assert float(areas.max()) > 0

@@ -358,3 +358,79 @@ def test_mask_stats_checks_its_input(bad):
         bits, boxes, areas = ms.mask_stats_fused(logits[:0], frame)
         assert tuple(bits.shape) == (0, 96, 12) and tuple(boxes.shape) == (0, 4)
         assert tuple(areas.shape) == (0,)
+
+
+def _stats_vs_jax(logits, m_h, m_w, active=None):
+    """The port's mask statistics and the JAX kernel's on the same inputs, and
+    the float64 resize that decides each pixel away from 0."""
+    ch, cw = len(m_h), len(m_w)
+    m_wt = np.ascontiguousarray(m_w.T)
+    got = ms.mask_stats_fused(_t(logits), _f(m_h, m_w),
+                              active=None if active is None else _t(active))
+    jact = np.ones(len(logits), np.int32) if active is None else active.astype(np.int32)
+    jp, jb, ja = jax_mask_stats_fused(jnp.asarray(logits), jnp.asarray(m_h), jnp.asarray(m_wt),
+                                      ch, cw, active=jnp.asarray(jact))
+    want = (np.asarray(jp)[:, :ch, :(cw + 7) // 8], np.asarray(jb), np.asarray(ja))
+    y64 = np.einsum('hs,msw,cw->mhc', m_h.astype(np.float64), logits.astype(np.float64),
+                    m_w.astype(np.float64))
+    return [g.numpy() for g in got], want, y64
+
+
+@pytest.mark.parametrize('crop', [512, 343])
+def test_mask_stats_on_the_main_path_matrices_match_jax(crop):
+    """The composed chain of the main path's two frames, a 512^2 crop of a
+    1024^2 key (crop 0 of a tile) and a 343^2 layer-1 crop, from S = 32 logits:
+    bits equal the JAX kernel's wherever the float64 resize is not within
+    float32 rounding of 0, and the boxes and areas are those of the bits."""
+    rng = np.random.RandomState(crop)
+    s = 32
+    m_h, m_w = composed_resize_matrices(1024, (1024, 1024, crop, crop), s)
+    assert m_h.shape == (crop, s)
+    logits = (rng.randn(3, s, s) * 2).astype(np.float32)
+    logits[2] = rng.randn(s, s).astype(np.float32) - 2.5     # a few small islands
+    (bits, boxes, areas), (jbits, jboxes, jareas), y64 = _stats_vs_jax(logits, m_h, m_w)
+    near_zero = np.abs(y64) <= 1e-5 * np.abs(logits).max()
+    assert near_zero.mean() < 1e-3
+    mask = np.unpackbits(bits, axis=-1)[..., :crop].astype(bool)
+    jmask = np.unpackbits(jbits, axis=-1)[..., :crop].astype(bool)
+    np.testing.assert_array_equal(mask[~near_zero], (y64 > 0)[~near_zero])
+    np.testing.assert_array_equal(jmask[~near_zero], mask[~near_zero])
+    assert not np.unpackbits(bits, axis=-1)[..., crop:].any()   # padding bits
+    own = _stats_reference(np.where(mask, 1.0, -1.0).astype(np.float32),
+                           np.eye(crop, dtype=np.float32), np.eye(crop, dtype=np.float32),
+                           crop, crop)
+    np.testing.assert_array_equal(boxes, own[1])
+    np.testing.assert_array_equal(areas, own[2])
+    if (mask == jmask).all():
+        np.testing.assert_array_equal(boxes, jboxes)
+        np.testing.assert_array_equal(areas, jareas)
+    assert 0 < areas[2] < areas[:2].max()
+
+
+def test_mask_stats_every_slot_gated_off():
+    """All flags 0: zero bits, boxes and areas, and no launch; the same slots
+    ungated equal the JAX kernel's."""
+    rng = np.random.RandomState(11)
+    m_h, m_w = composed_resize_matrices(128, (128, 128, 61, 45), 32)
+    logits = (rng.randn(4, 32, 32) * 3).astype(np.float32)
+    before = ms.launches
+    bits, boxes, areas = ms.mask_stats_fused(_t(logits), _f(m_h, m_w),
+                                             active=torch.zeros(4, dtype=torch.bool))
+    assert ms.launches == before
+    assert tuple(bits.shape) == (4, 61, 6)
+    assert not bits.any() and not boxes.any() and not areas.any()
+    got, want, _ = _stats_vs_jax(logits, m_h, m_w, active=np.ones(4, bool))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_mask_stats_one_slot_matches_jax():
+    """M = 1, on a frame narrower than one 32-bit word of bits (cw = 21)."""
+    rng = np.random.RandomState(12)
+    m_h, m_w = composed_resize_matrices(128, (128, 112, 70, 21), 32)
+    logits = (rng.randn(1, 32, 32) * 3).astype(np.float32)
+    got, want, y64 = _stats_vs_jax(logits, m_h, m_w)
+    assert got[0].shape == (1, 70, 3) and got[1].shape == (1, 4) and got[2].shape == (1,)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert got[2][0] == (y64 > 0).sum()

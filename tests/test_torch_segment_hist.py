@@ -107,3 +107,39 @@ def test_homogenize_matches_jax(use_pallas, num_regions):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != pseudo).any()  # LRH changed some labels
+
+
+@pytest.mark.parametrize('kind', ['over_budget', 'one_region_one_label', 'ignore_c7_odd_n',
+                                  'one_pixel', 'last_bin_only'])
+def test_hist_edge_cases_match_pallas_interpret(kind):
+    """Inputs at the edges of what is counted, against the Pallas kernel in
+    interpret mode: every region id over the budget (all zeros); one region
+    and one label over the whole image; C = 7 with ignore labels at B = 3 and
+    an odd N; N = 1; every pixel in the last bin of the histogram."""
+    rng = np.random.default_rng(len(kind))
+    num_regions, num_classes, b, n = 64, 6, 2, 1000
+    if kind == 'over_budget':
+        labels = rng.integers(0, num_classes, (b, n))
+        regions = rng.integers(num_regions, num_regions + 500, (b, n))
+    elif kind == 'one_region_one_label':
+        labels, regions = np.full((b, n), 3), np.full((b, n), 17)
+    elif kind == 'ignore_c7_odd_n':
+        num_classes, b, n = 7, 3, 1001
+        labels = np.where(rng.random((b, n)) < 0.3, -1, rng.integers(0, 9, (b, n)))
+        regions = rng.integers(-1, num_regions + 3, (b, n))
+    elif kind == 'one_pixel':
+        b, n = 3, 1
+        labels, regions = np.array([[2], [-1], [5]]), np.array([[0], [1], [63]])
+    else:
+        labels = np.full((b, n), num_classes - 1)
+        regions = np.full((b, n), num_regions - 1)
+    labels, regions = labels.astype(np.int32), regions.astype(np.int32)
+    want = np.asarray(segment_hist_labels_pallas(
+        jnp.asarray(labels), jnp.asarray(regions), num_regions, num_classes, interpret=True))
+    got = sh.segment_hist_labels(torch.from_numpy(labels), torch.from_numpy(regions),
+                                 num_regions, num_classes)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind == 'over_budget':
+        assert not want.any()
+    elif kind in ('one_region_one_label', 'last_bin_only'):
+        assert (want.reshape(b, -1).sum(1) == n).all() and np.count_nonzero(want) == b
