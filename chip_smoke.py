@@ -32,7 +32,9 @@ Phases (any failure raises, and the exit code is non-zero):
               device's pace, and its kernel's device time from
               torch.profiler) beside the host's microseconds a call.
      check    small-size agreement of the card with the CPU: the ResNet-101
-              eval forward (f32, rtol/atol 1e-4) and one resnet18 stage-2
+              eval forward (f32, rtol/atol 1e-4), a resnet18 `SegInferencer`
+              (folded, fused; slide + TTA on a 96x80 image, tile 64, stride
+              32; f32, rtol 1e-4, atol 1e-5), one resnet18 stage-2
               step with dropout off (losses rtol 1e-4), `homogenize` at
               8x512^2, kernel on the card against plain on the CPU (equal),
               the SAM encoder at ViT-B width and depth on a 256^2 image, a
@@ -43,9 +45,20 @@ Phases (any failure raises, and the exit code is non-zero):
               `generate_regions_batch` and `generate_regions_stream` on the
               card give the CPU's maps, and a run with interleaved masks
               gives the blocked ones through the interleaved stability entry.
-  2. serve    ResNet-101 DeepLabv2 (C = 6) eval forward on 16 tiles of 512^2,
-              bf16 compute with f32 weights: shape, finiteness, probabilities
-              summing to 1 within 1e-2, tiles/s.
+  2. serve    `serve_entry()`: a `SegInferencer` over ResNet-101 DeepLabv2
+              (C = 6) with seeded weights and BN statistics, bf16 compute with
+              f32 weights, BN folded into the convs and both PPM heads'
+              feature conv fused, beside the stock forward of the same weights
+              (`fold_bn=False`). (a) `predict_probs(slide=False)` on 16 tiles
+              of 512^2: shape, finiteness, probabilities summing to 1 within
+              1e-2, the two forwards within FOLDED_VS_STOCK_BF16_STEPS, tiles/s
+              of both in turns, and a torch.profiler split of one batch of
+              each by kind of kernel: none of batch-norm in the served one.
+              (b) one 1024^2 scene by slide (512, stride 256) + TTA, 72 tile
+              forwards: `predict_labels` equal to the argmax of
+              `predict_probs` wherever the top two differ by more than 1e-3,
+              scenes/s, peak memory. (c) `predict_multiscale` on 2 x 512^2 at
+              the six default scales: shape, finiteness, ms.
   3. train    `stage2_steps(3)`: ResNet-101, C = 6, 512^2 crops, batch 8 per
               domain, f32, with align_domain, refine_label and sam_refine.
               Every loss finite, step count 3, and the segment-histogram
@@ -233,6 +246,14 @@ TWOWAY_BF16_STEPS = 8
 # the fast decode against the stock decode, both in bf16 at full width: two
 # computations of one function that round at different places throughout
 FAST_VS_STOCK_BF16_STEPS = 16
+# the served forward (BN folded into the convs, whose cuDNN epilogue adds
+# bias, residual and ReLU in float32 before one rounding; both heads' feature
+# conv fused) against the stock forward (bf16 roundings after every conv, BN
+# and add), both bf16 at full width: again one function rounded at different
+# places throughout ~110 layers. Each lies ~9 steps from the float32 forward
+# at 16x512^2 (NVIDIA H100 80GB HBM3, 700.00 W), ~7 at 2x128^2 on the CPU,
+# so their difference can reach about twice that
+FOLDED_VS_STOCK_BF16_STEPS = 20
 # stability counts over a (ch, cw) frame: the kernel sums each pixel's 4 + 4
 # taps with fused multiply-adds in index order, the plain version with dense
 # matmuls in the library's order, so a resized logit within an ulp of +-offset
@@ -1153,6 +1174,22 @@ def phase_check(device):
         raise AssertionError(f'eval forward card vs CPU: max abs err {err}')
     print(f'[check] ResNet-101 eval forward 2x64^2 f32, card vs CPU: max abs err {err:.3g}')
 
+    # the serve path: SegInferencer (folded, fused) on the card vs the CPU
+    import copy
+    from regda_tpu_torch.entry import seed_bn_statistics
+    from regda_tpu_torch.infer import SegInferencer
+    generator = torch.Generator().manual_seed(9)
+    model = build_deeplabv2('resnet18', 6, generator=generator)
+    seed_bn_statistics(model, generator)
+    image = torch.randn(1, 96, 80, 3, generator=generator).numpy()
+    want = SegInferencer(model.eval(), 6, tile=64, stride=32).predict_probs(image, tta=True)
+    inf = SegInferencer(copy.deepcopy(model).to(device), 6, tile=64, stride=32)
+    got = inf.predict_probs(image, tta=True)
+    err = _assert_close('SegInferencer slide + TTA card vs CPU', torch.from_numpy(got),
+                        torch.from_numpy(want), rtol=1e-4, atol=1e-5)
+    print(f'[check] resnet18 SegInferencer f32, folded + fused, slide 64/32 + TTA on 96x80, '
+          f'card vs CPU: max abs err {err:.3g}')
+
     import numpy as np
     from regda_tpu_torch.entry import stage2_state, synthetic_stage2_batch
     from regda_tpu_torch.models.heads import Dropout2d
@@ -1336,28 +1373,129 @@ def check_regions(device) -> int:
     return launches
 
 
-def phase_serve(device) -> None:
-    import torch
-    from regda_tpu_torch.entry import entry
+SERVE_KINDS = (('batch_norm', ('batch_norm', 'batchnorm', 'bn_fw')), ('upsample', ('upsample',)),
+               ('pool', ('pool',)), ('softmax', ('softmax',)), ('copy', ('copy',)),
+               ('conv', ('conv', 'fprop', 'xmma', 'cutlass', 'nvjet', 'gemm')),
+               ('elementwise', ('elementwise', 'reduce')))
 
-    forward, (image,) = entry(device, batch=16, dtype=torch.bfloat16)
-    torch.cuda.reset_peak_memory_stats()
+
+def serve_split(fn) -> tuple[dict, dict]:
+    """Device ms and kernel count of one call of fn() by kind of kernel
+    (SERVE_KINDS by name, first match; the rest 'other'), from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):   # the second profile counts: the first starts the tracer
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    ms, count = {}, {}
+    for ev in prof.events():
+        if str(ev.device_type).endswith('CUDA'):
+            name = ev.name.lower()
+            kind = next((k for k, tags in SERVE_KINDS if any(s in name for s in tags)), 'other')
+            ms[kind] = ms.get(kind, 0.0) + ev.device_time / 1e3
+            count[kind] = count.get(kind, 0) + 1
+    return ms, count
+
+
+def _split_line(ms: dict, count: dict) -> str:
+    total = sum(ms.values())
+    return f'{total:.3f} ms of kernels: ' + ', '.join(
+        f'{k} {v:.3f} ms ({100 * v / total:.1f} %, {count[k]} kernels)'
+        for k, v in sorted(ms.items(), key=lambda kv: -kv[1]))
+
+
+def phase_serve(device) -> None:
+    """`serve_entry()`: ResNet-101, C = 6, bf16 compute with f32 weights,
+    through `SegInferencer` (BN folded, dual-PPM conv fused), beside the
+    stock forward of the same weights; (a) 16 whole tiles, (b) one 1024^2
+    scene by slide + TTA, (c) multi-scale."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.entry import serve_entry
+
+    folded, images = serve_entry(device)
+    stock, _ = serve_entry(device, fold_bn=False)
+    if not (folded.fold_bn and folded.fused_ppm and folded.model.folded) or stock.model.folded:
+        raise AssertionError('serve_entry did not give a folded, fused inferencer')
+    x = torch.from_numpy(images).to(device)
+
+    # (a) whole tiles
     t0 = time.perf_counter()
-    probs = forward(image)
-    torch.cuda.synchronize()
+    probs = folded.predict_probs(images, slide=False)
     first_s = time.perf_counter() - t0
-    if tuple(probs.shape) != (16, 512, 512, 6):
-        raise AssertionError(f'serve output shape {tuple(probs.shape)}')
-    p = probs.float()
-    if not bool(torch.isfinite(p).all()):
-        raise AssertionError('serve output is not finite')
-    sum_err = float((p.sum(-1) - 1.0).abs().max())
+    if probs.shape != (16, 512, 512, 6) or not np.isfinite(probs).all():
+        raise AssertionError(f'serve output {probs.shape}, finite {np.isfinite(probs).all()}')
+    sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
     if sum_err > 1e-2:
         raise AssertionError(f'probabilities sum to 1 only within {sum_err}')
-    ms = cuda_ms(lambda: forward(image), iters=10, warmup=2)
-    print(f'[serve] ResNet-101 bf16 eval 16x512^2: first call {first_s:.3f} s, '
-          f'{ms:.3f} ms/batch, {16e3 / ms:.2f} tiles/s, |sum-1| <= {sum_err:.3g}, '
-          f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    want = stock.predict_probs(images, slide=False)
+    err = _within_bf16_steps('folded + fused vs stock forward, bf16', torch.from_numpy(probs),
+                             torch.from_numpy(want), FOLDED_VS_STOCK_BF16_STEPS)
+    print(f'[serve] (a) ResNet-101 bf16 16x512^2 through SegInferencer.predict_probs: first call '
+          f'{first_s:.3f} s, |sum-1| <= {sum_err:.3g}; folded + fused vs stock forward: max abs '
+          f'err {err:.4g} (max |value| {float(np.abs(want).max()):.4g}, limit '
+          f'{FOLDED_VS_STOCK_BF16_STEPS} bf16 steps)')
+    with torch.inference_mode():
+        times = {'stock': [], 'folded': []}
+        for name in ('stock', 'folded', 'folded', 'stock'):
+            inf = folded if name == 'folded' else stock
+            times[name].append(cuda_ms(lambda: inf.probs_tensor(x, slide=False), iters=10, warmup=2))
+        print('[serve] (a) ms per batch of 16 (CUDA events, in turns stock, folded, folded, stock): '
+              + '; '.join(f'{k} {", ".join(f"{v:.3f}" for v in vs)} ms = '
+                          f'{", ".join(f"{16e3 / v:.2f}" for v in vs)} tiles/s'
+                          for k, vs in times.items()))
+        splits = {name: serve_split(lambda: inf.probs_tensor(x, slide=False))
+                  for name, inf in (('folded', folded), ('stock', stock))}
+    for name, (ms, count) in splits.items():
+        print(f'[serve] (a) {name} batch by kind (torch.profiler, one batch): {_split_line(ms, count)}')
+    if splits['folded'][1].get('batch_norm', 0) or not splits['stock'][1].get('batch_norm', 0):
+        raise AssertionError(f'batch-norm kernels: folded {splits["folded"][1].get("batch_norm", 0)}, '
+                             f'stock {splits["stock"][1].get("batch_norm", 0)} (expected 0 and some)')
+    del x, probs, want
+    stock.model.cpu()
+    torch.cuda.empty_cache()
+
+    # (b) one 1024^2 scene, slide + TTA: 9 tiles x 8 = 72 tile forwards
+    scene = np.random.default_rng(1).normal(size=(1, 1024, 1024, 3)).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probs = folded.predict_probs(scene, slide=True, tta=True)
+    first_s = time.perf_counter() - t0
+    labels = folded.predict_labels(scene, slide=True, tta=True)
+    if probs.shape != (1, 1024, 1024, 6) or not np.isfinite(probs).all():
+        raise AssertionError(f'scene output {probs.shape}, finite {np.isfinite(probs).all()}')
+    top2 = np.sort(probs, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 1e-3
+    if labels.dtype != np.int32 or not np.array_equal(labels[clear], probs.argmax(-1)[clear]):
+        raise AssertionError('predict_labels differs from the argmax of predict_probs')
+    xs = torch.from_numpy(scene).to(device)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: folded.probs_tensor(xs, slide=True, tta=True), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        folded.predict_labels(scene, slide=True, tta=True)
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f'[serve] (b) one 1024^2 scene, slide 512/256 + TTA (72 tile forwards): first call '
+          f'{first_s:.3f} s; probs_tensor {ms:.3f} ms = {1e3 / ms:.3f} scenes/s (CUDA events); '
+          f'predict_labels from numpy {host_ms:.3f} ms = {1e3 / host_ms:.3f} scenes/s (host clock); '
+          f'labels = argmax of probs at the {clear.mean() * 100:.2f} % of pixels whose top two '
+          f'differ by more than 1e-3; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    del xs
+
+    # (c) multi-scale, 2 x 512^2 at the six default scales
+    pair = images[:2]
+    t0 = time.perf_counter()
+    probs = folded.predict_multiscale(pair)
+    first_s = time.perf_counter() - t0
+    if probs.shape != (2, 512, 512, 6) or not np.isfinite(probs).all():
+        raise AssertionError(f'multiscale output {probs.shape}, finite {np.isfinite(probs).all()}')
+    xp = torch.from_numpy(pair).to(device)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: folded.multiscale_tensor(xp), iters=3, warmup=1)
+    print(f'[serve] (c) predict_multiscale 2x512^2, scales 0.75-2.0: first call {first_s:.3f} s, '
+          f'{ms:.3f} ms per call (CUDA events)')
 
 
 def phase_train(device) -> None:

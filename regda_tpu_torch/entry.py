@@ -1,10 +1,13 @@
-"""Entry points of the port: the served eval forward, a few stage-2 steps,
-SAM's encode and point-prompt decode, and SAM's everything-mode region
-generator.
+"""Entry points of the port: the served eval forward, the segmentation
+inferencer, a few stage-2 steps, SAM's encode and point-prompt decode, and
+SAM's everything-mode region generator.
 
 `entry()` is the counterpart of `__graft_entry__.entry()`: the DeepLabv2 /
 ResNet-101 (C = 6) eval forward with seeded random weights, and example
-arguments. `stage2_steps(n)` builds a stage-2 train state and runs `n` steps
+arguments. `serve_entry()` wraps such a model, with seeded BatchNorm
+statistics too, in the `SegInferencer` that evaluation and single-image
+prediction go through (BN folding and the fused dual-PPM forward on).
+`stage2_steps(n)` builds a stage-2 train state and runs `n` steps
 of `train/steps.py:make_stage2_step` on seeded synthetic batches, with LRH
 over ragged region maps, the path whose histogram is a CUDA kernel.
 `sam_entry()` builds SAM with seeded random weights and example crops and
@@ -27,7 +30,9 @@ import time
 import numpy as np
 import torch
 
+from regda_tpu_torch.infer import SegInferencer
 from regda_tpu_torch.models import build_deeplabv2
+from regda_tpu_torch.models.resnet import BatchNorm2d
 from regda_tpu_torch.models.sam.auto import Sam, SamRegionGenerator, build_point_grid
 from regda_tpu_torch.train import create_train_state, make_optimizer
 from regda_tpu_torch.train.steps import make_stage2_step
@@ -57,6 +62,36 @@ def entry(device='cuda', *, batch: int = 1, dtype: torch.dtype = torch.float32):
     image = torch.from_numpy(np.random.default_rng(0).normal(
         size=(batch, 512, 512, 3)).astype(np.float32)).to(device)
     return forward, (image,)
+
+
+@torch.no_grad()
+def seed_bn_statistics(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Draw every BatchNorm's running mean (normal, std 0.1) and variance
+    (uniform in [0.5, 2)) from `generator`, so that folding them moves the
+    weights as a trained model's statistics would (a fresh model holds 0 / 1)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=generator))
+            m.running_var.copy_(0.5 + 1.5 * torch.rand(m.running_var.shape, generator=generator))
+
+
+def serve_entry(device='cuda', *, dtype: torch.dtype = torch.bfloat16,
+                resnet: str = 'ResNet101', images: int = 16, size: int = 512,
+                tile: int = 512, stride: int = 256, fold_bn: bool | None = None):
+    """-> (inferencer, images): a `SegInferencer` over DeepLabv2 (`resnet`,
+    C = 6) with seeded random weights and BatchNorm statistics, float32
+    parameters computing in `dtype`, at `tile` / `stride`; and `images`
+    seeded normal (images, size, size, 3) float32 numpy images. The default
+    folds the BNs and fuses the heads; `fold_bn=False` serves the stock
+    forward of the same weights."""
+    device = _device(device)
+    generator = torch.Generator().manual_seed(0)
+    model = build_deeplabv2(resnet, num_classes=6, dtype=dtype, generator=generator)
+    seed_bn_statistics(model, generator)
+    model = model.to(device, memory_format=torch.channels_last).eval()
+    inferencer = SegInferencer(model, 6, tile=tile, stride=stride, fold_bn=fold_bn)
+    batch = np.random.default_rng(0).normal(size=(images, size, size, 3)).astype(np.float32)
+    return inferencer, batch
 
 
 MAX_REGION_ID = 300   # a SAM everything-mode tile carries a few hundred regions

@@ -11,6 +11,11 @@ has stride 1, its first block dilation 1 and the rest dilation 2
 the JAX package's space-to-depth rewrite (`StemConv`) exists for the TPU's
 matrix unit and gives the identical result.
 
+`folded=True` builds the inference-only encoder of a model whose BatchNorm
+affines were folded into their convs (models/fold_bn.py): each BN becomes a
+`FoldedBias`, a bare per-channel bias, which the conv before it adds in its
+epilogue (`conv_bias_act`). Training never uses it.
+
 Two layers carry the JAX package's semantics rather than torch's defaults:
   * `Conv2d` computes in its input's dtype with float32 parameters, as a
     Flax `nn.Conv(dtype=...)` does: bf16 input means bf16 compute.
@@ -69,51 +74,98 @@ class BatchNorm2d(nn.Module):
         return y
 
 
-def conv_bn(in_ch: int, out_ch: int, stride: int = 1) -> nn.Sequential:
+class FoldedBias(nn.Module):
+    """Stand-in for an eval BatchNorm whose affine was folded into the conv
+    before it: the per-channel bias t = beta - mean * s that remains
+    (regda_tpu/models/fold_bn.py:FoldedBias). Its one parameter, `bias`,
+    keeps the BN's state_dict name."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x):
+        return x + self.bias.to(x.dtype).view(-1, 1, 1)
+
+
+def norm_layer(num_features: int, folded: bool) -> nn.Module:
+    return FoldedBias(num_features) if folded else BatchNorm2d(num_features)
+
+
+def conv_bias_act(x, weight, bias, stride=(1, 1), padding=(0, 0), dilation=(1, 1),
+                  relu: bool = False, residual=None):
+    """conv(x, weight) + bias (+ residual), then ReLU where asked, with weight
+    and bias cast to x's dtype. On a CUDA tensor, a ReLU'd result comes from
+    one cuDNN call that adds the bias and the residual in the convolution's
+    epilogue (`torch.cudnn_convolution_relu` / `_add_relu`), so the folded
+    eval runs no elementwise pass of its own; elsewhere, the plain ops."""
+    weight, bias = weight.to(x.dtype), bias.to(x.dtype)
+    if x.is_cuda and relu:
+        if residual is None:
+            return torch.cudnn_convolution_relu(x, weight, bias, stride, padding, dilation, 1)
+        return torch.cudnn_convolution_add_relu(x, weight, residual, 1.0, bias,
+                                                stride, padding, dilation, 1)
+    y = F.conv2d(x, weight, bias, stride, padding, dilation)
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
+
+
+def conv_norm(conv: Conv2d, norm: nn.Module, x, relu: bool, residual=None):
+    """norm(conv(x)) (+ residual), then ReLU where asked. A folded norm's
+    bias goes into the convolution (`conv_bias_act`)."""
+    if isinstance(norm, FoldedBias):
+        return conv_bias_act(x, conv.weight, norm.bias, conv.stride, conv.padding,
+                             conv.dilation, relu, residual)
+    y = norm(conv(x))
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
+
+
+def conv_bn(in_ch: int, out_ch: int, stride: int = 1, folded: bool = False) -> nn.Sequential:
     """The 1x1 projection shortcut (`downsample.0` conv, `downsample.1` BN)."""
     return nn.Sequential(Conv2d(in_ch, out_ch, 1, stride, bias=False),
-                         BatchNorm2d(out_ch))
+                         norm_layer(out_ch, folded))
 
 
 class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 dilation: int = 1, has_proj: bool = False):
+                 dilation: int = 1, has_proj: bool = False, folded: bool = False):
         super().__init__()
         self.conv1 = Conv2d(in_ch, planes, 1, bias=False)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = norm_layer(planes, folded)
         self.conv2 = Conv2d(planes, planes, 3, stride, dilation, dilation, bias=False)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = norm_layer(planes, folded)
         self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = BatchNorm2d(planes * 4)
-        self.downsample = conv_bn(in_ch, planes * 4, stride) if has_proj else None
+        self.bn3 = norm_layer(planes * 4, folded)
+        self.downsample = conv_bn(in_ch, planes * 4, stride, folded) if has_proj else None
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        idt = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + idt)
+        y = conv_norm(self.conv1, self.bn1, x, relu=True)
+        y = conv_norm(self.conv2, self.bn2, y, relu=True)
+        idt = x if self.downsample is None else conv_norm(*self.downsample, x, relu=False)
+        return conv_norm(self.conv3, self.bn3, y, relu=True, residual=idt)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 dilation: int = 1, has_proj: bool = False):
+                 dilation: int = 1, has_proj: bool = False, folded: bool = False):
         super().__init__()
         self.conv1 = Conv2d(in_ch, planes, 3, stride, dilation, dilation, bias=False)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = norm_layer(planes, folded)
         self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = BatchNorm2d(planes)
-        self.downsample = conv_bn(in_ch, planes, stride) if has_proj else None
+        self.bn2 = norm_layer(planes, folded)
+        self.downsample = conv_bn(in_ch, planes, stride, folded) if has_proj else None
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        idt = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + idt)
+        y = conv_norm(self.conv1, self.bn1, x, relu=True)
+        idt = x if self.downsample is None else conv_norm(*self.downsample, x, relu=False)
+        return conv_norm(self.conv2, self.bn2, y, relu=True, residual=idt)
 
 
 # (stride, first-block dilation, later-block dilation) for layer1..4 at OS=16
@@ -123,11 +175,11 @@ STAGE_PLAN = ((1, 1, 1), (2, 1, 1), (2, 1, 1), (1, 1, 2))
 class ResNet(nn.Module):
     """NCHW in, the last stage's (B, C, H/16, W/16) feature map out."""
 
-    def __init__(self, resnet_type: str = 'resnet101'):
+    def __init__(self, resnet_type: str = 'resnet101', folded: bool = False):
         super().__init__()
         block = BasicBlock if resnet_type in BASIC_BLOCK_TYPES else Bottleneck
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = norm_layer(64, folded)
         in_ch, planes = 64, 64
         for stage, (n_blocks, (stride, d0, d1)) in enumerate(
                 zip(RESNET_DEPTHS[resnet_type], STAGE_PLAN), 1):
@@ -135,14 +187,15 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 blocks.append(block(
                     in_ch, planes, stride if b == 0 else 1, d0 if b == 0 else d1,
-                    has_proj=b == 0 and (stride != 1 or in_ch != planes * block.expansion)))
+                    has_proj=b == 0 and (stride != 1 or in_ch != planes * block.expansion),
+                    folded=folded))
                 in_ch = planes * block.expansion
             setattr(self, f'layer{stage}', nn.Sequential(*blocks))
             planes *= 2
         self.out_channels = in_ch
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = conv_norm(self.conv1, self.bn1, x, relu=True)
         x = F.max_pool2d(x, 3, 2, 1)
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
@@ -150,9 +203,9 @@ class ResNet(nn.Module):
 class ResNetEncoder(nn.Module):
     """Holds the body as `resnet`, giving the reference's `encoder.resnet.*` keys."""
 
-    def __init__(self, resnet_type: str = 'resnet101'):
+    def __init__(self, resnet_type: str = 'resnet101', folded: bool = False):
         super().__init__()
-        self.resnet = ResNet(resnet_type)
+        self.resnet = ResNet(resnet_type, folded)
 
     def forward(self, x):
         return self.resnet(x)

@@ -1,11 +1,16 @@
-"""JAX variables -> the port's state_dict.
+"""JAX variables -> the port's state_dict, and a checked state_dict load.
 
-Inverse of regda_tpu/utils/torch_convert.py:torch_state_dict_to_variables:
-the Flax `{'params', 'batch_stats'}` tree (numpy leaves) of a DeeplabV2
-becomes a state_dict under the reference's key names, with conv kernels
-HWIO -> OIHW, BN `scale/bias` -> `weight/bias`, `mean/var` ->
-`running_mean/running_var`. `torch_state_dict_to_variables` maps the result
-back to the same tree exactly.
+`from_jax_variables` is the inverse of
+regda_tpu/utils/torch_convert.py:torch_state_dict_to_variables: the Flax
+`{'params', 'batch_stats'}` tree (numpy leaves) of a DeeplabV2 becomes a
+state_dict under the reference's key names, with conv kernels HWIO -> OIHW,
+BN `scale/bias` -> `weight/bias`, `mean/var` -> `running_mean/running_var`.
+`torch_state_dict_to_variables` maps the result back to the same tree
+exactly.
+
+`load_segmenter_state_dict` loads a reference-layout state_dict (a `.pth`
+that the reference, the port or the JAX package's converter reads) into the
+port's DeeplabV2 and refuses any key that is missing or left over.
 """
 
 from __future__ import annotations
@@ -67,3 +72,22 @@ def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
             key = f'{_module_key(path[:-1])}.{_LEAVES[(coll, path[-1])]}'
             state[key] = torch.from_numpy(np.array(arr, order='C'))  # own copy
     return state
+
+
+# keys of a reference torch checkpoint that carry nothing for the model, as
+# the JAX package's converter skips them (regda_tpu/utils/torch_convert.py)
+UNUSED_SUFFIXES = ('.num_batches_tracked',)
+UNUSED_PREFIXES = ('instance_norm',)
+
+
+def load_segmenter_state_dict(model: torch.nn.Module, state: Mapping) -> None:
+    """Load a reference-layout DeepLabv2 state_dict into the port's model, in
+    place. Raises KeyError naming every key that is missing, or present and
+    unknown to the model (beyond UNUSED_*): a misnamed key would otherwise
+    leave its parameter at its random initial value."""
+    state = {k: v for k, v in state.items()
+             if not (k.endswith(UNUSED_SUFFIXES) or k.startswith(UNUSED_PREFIXES))}
+    result = model.load_state_dict(state, strict=False)
+    if result.missing_keys or result.unexpected_keys:
+        raise KeyError(f'missing {sorted(result.missing_keys)}, '
+                       f'unexpected {sorted(result.unexpected_keys)}')

@@ -1,0 +1,90 @@
+"""CLI, config and logging plumbing (counterpart of regda_tpu/utils/tools.py).
+
+Parity targets: regda/utils/tools.py:24-30 (str2bool), :173-181
+(import_config: dotted-path module import + SNAPSHOT_DIR postfix + config
+provenance copy), :221-237 (console+file logger), :401-407 (parameter count).
+Configs resolve under the port's own `regda_tpu_torch.configs` package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import logging
+import os
+import shutil
+import time
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def str2bool(v: str) -> bool:
+    if v.lower() in ('yes', 'true', 't', 'y', '1'):
+        return True
+    if v.lower() in ('no', 'false', 'f', 'n', '0'):
+        return False
+    raise argparse.ArgumentTypeError('Unsupported value encountered.')
+
+
+def import_config(config_name: str, prefix: str = 'regda_tpu_torch.configs',
+                  copy: bool = True, create: bool = True, postfix: str = ''):
+    """Import `<prefix>.<config_name>` (e.g. 'st.regda.2vaihingen'); append
+    `postfix` to its SNAPSHOT_DIR, create that directory and copy the config
+    file into it as config.py, as asked."""
+    m = importlib.import_module(name=f'{prefix}.{config_name}')
+    m.SNAPSHOT_DIR += postfix
+    if create:
+        os.makedirs(m.SNAPSHOT_DIR, exist_ok=True)
+    if copy:
+        shutil.copy(m.__file__, os.path.join(m.SNAPSHOT_DIR, 'config.py'))
+    return m
+
+
+def get_console_file_logger(name: str, level=logging.INFO,
+                            logdir: str = './baseline') -> logging.Logger:
+    logger = logging.Logger(name)
+    logger.setLevel(level)
+    fmt = logging.Formatter("%(asctime)s, %(levelname)s:%(name)s:%(message)s",
+                            '%Y-%m-%d %H:%M:%S')
+    ch = logging.StreamHandler()
+    ch.setFormatter(fmt)
+    ch.setLevel(level)
+    logger.addHandler(ch)
+    os.makedirs(logdir, exist_ok=True)
+    fh = logging.FileHandler(os.path.join(logdir, str(time.time()) + '.log'))
+    fh.setFormatter(fmt)
+    logger.addHandler(fh)
+    return logger
+
+
+def default_seed() -> int:
+    """2333 (the reference's seed_torch(2333), tools/train_src.py:169-172)
+    unless REGDA_SEED overrides it."""
+    return int(os.environ.get('REGDA_SEED', '2333'))
+
+
+def seed_all(seed: int = None):
+    """Seed Python's, numpy's and torch's global generators (the port's own
+    random draws take explicit `torch.Generator`s)."""
+    import random
+    seed = default_seed() if seed is None else seed
+    random.seed(seed)
+    os.environ['PYTHONHASHSEED'] = str(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+_STAT_SUFFIXES = ('running_mean', 'running_var', 'num_batches_tracked')
+
+
+def count_model_parameters(state_dict: Mapping[str, torch.Tensor], logger=None) -> int:
+    """Number of parameter values in a state_dict. BatchNorm running
+    statistics are buffers, not parameters, and are left out, as the
+    reference counts `model.parameters()`."""
+    cnt = sum(int(v.numel()) for k, v in state_dict.items()
+              if not k.endswith(_STAT_SUFFIXES))
+    if logger is not None:
+        logger.info('#params: {}, {} M'.format(cnt, round(cnt / 1e6, 3)))
+    return cnt

@@ -680,3 +680,74 @@ def test_mask_stats_kernel_main_path_frames(device, crop):
     active = torch.from_numpy(np.arange(64) % 2 == 0).to(device)
     _, _, areas = _check_mask_stats(logits, frame, active)
     assert float(areas.max()) > 0
+
+
+# ---- the serve path: cuDNN's fused conv epilogue and SegInferencer -----------
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize('cin,cout,k,stride,dilation,residual', [
+    (3, 64, 7, 2, 1, False), (256, 64, 1, 1, 1, False), (128, 128, 3, 2, 1, False),
+    (512, 512, 3, 1, 2, False), (64, 256, 1, 1, 1, True), (2560, 512, 3, 1, 1, True)])
+def test_conv_bias_act_card_matches_cpu(device, no_tf32, cin, cout, k, stride, dilation,
+                                        residual):
+    """The folded model's conv epilogue: one cuDNN call on the card (bias,
+    residual and ReLU fused) against the plain ops on the CPU, f32. The sums
+    run to 2560 x 9 products in other orders, on values up to ~5: rtol 1e-4,
+    atol 1e-4."""
+    from regda_tpu_torch.models.resnet import conv_bias_act
+    g = torch.Generator().manual_seed(cin + k)
+    x = torch.randn(2, cin, 33, 30, generator=g)
+    w = torch.randn(cout, cin, k, k, generator=g) / (cin * k * k) ** 0.5
+    b = torch.randn(cout, generator=g)
+    pad = dilation * (k // 2)
+    out_hw = [(n + 2 * pad - dilation * (k - 1) - 1) // stride + 1 for n in (33, 30)]
+    z = torch.randn(2, cout, *out_hw, generator=g) if residual else None
+    args = ((stride, stride), (pad, pad), (dilation, dilation), True)
+    want = conv_bias_act(x, w, b, *args, z)
+    got = conv_bias_act(x.to(device, memory_format=torch.channels_last), w.to(device),
+                        b.to(device), *args,
+                        None if z is None else z.to(device, memory_format=torch.channels_last))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_seg_inferencer_card_matches_cpu(device, no_tf32):
+    """resnet18, f32, folded and fused, slide + TTA on an image that is not a
+    multiple of the tile, and the labels."""
+    import copy
+    from regda_tpu_torch.entry import seed_bn_statistics
+    from regda_tpu_torch.infer import SegInferencer
+    from regda_tpu_torch.models import build_deeplabv2
+    g = torch.Generator().manual_seed(5)
+    model = build_deeplabv2('resnet18', 6, generator=g)
+    seed_bn_statistics(model, g)
+    image = torch.randn(1, 96, 80, 3, generator=g).numpy()
+    cpu = SegInferencer(model.eval(), 6, tile=64, stride=32)
+    card = SegInferencer(copy.deepcopy(model).to(device), 6, tile=64, stride=32)
+    assert card.model.folded and card.fused_ppm
+    want = cpu.predict_probs(image, slide=True, tta=True)
+    got = card.predict_probs(image, slide=True, tta=True)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    labels = card.predict_labels(image, slide=True, tta=True)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 1e-4
+    assert np.array_equal(labels[clear], want.argmax(-1)[clear])
+
+
+def test_folded_fused_forward_matches_stock_bf16(device):
+    """ResNet-101 at 2 x 256^2 in bf16: the served forward (folded, fused)
+    against the stock forward of the same weights, within chip_smoke.py's
+    FOLDED_VS_STOCK_BF16_STEPS (20) bf16 steps of the largest probability."""
+    from regda_tpu_torch.entry import serve_entry
+    folded, images = serve_entry(device, images=2, size=256, tile=256)
+    stock, _ = serve_entry(device, images=2, size=256, tile=256, fold_bn=False)
+    got = folded.predict_probs(images, slide=False)
+    want = stock.predict_probs(images, slide=False)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 20 * 2.0 ** -8 * np.abs(want).max()
