@@ -44,7 +44,10 @@ Phases (any failure raises, and the exit code is non-zero):
               a vit_t f32 region generator (96^2 tiles): `generate_regions`,
               `generate_regions_batch` and `generate_regions_stream` on the
               card give the CPU's maps, and a run with interleaved masks
-              gives the blocked ones through the interleaved stability entry.
+              gives the blocked ones through the interleaved stability entry;
+              a resnet18 stage-1 step (both align settings; 8 crops a domain
+              at 64^2: losses rtol 1e-4, parameters atol 1e-5, `ppm.0.2`
+              1e-4) and a prototype pass (sums rtol/atol 1e-4, counts equal).
   2. serve    `serve_entry()`: a `SegInferencer` over ResNet-101 DeepLabv2
               (C = 6) with seeded weights and BN statistics, bf16 compute with
               f32 weights, BN folded into the convs and both PPM heads'
@@ -102,9 +105,28 @@ Phases (any failure raises, and the exit code is non-zero):
               `generate_regions_batch` and `generate_regions` give the maps
               of `generate()` + `regions_from_anns`, whose boxes, areas and
               paint are numpy on the host.
+  6. stages   `phase_stages()`: the four stage CLIs in this process through
+              their `main(argv)`, on `configs/st/regda/full_smoke.py`'s
+              synthetic tree written to a fresh temporary directory
+              (REGDA_FULL_ROOT; ResNet-101, C = 6, 512^2 tiles, batch 8 per
+              domain, 32 train / 8 val / 8 test tiles a domain, region maps),
+              f32 with TF32 off, STAGE_STEPS steps a stage: train_src
+              --align-domain 1; init_prototypes on its `_best.pth`;
+              train_align_reg --align-domain 1 --refine-label 1 --sam-refine
+              --percent 0.5; eval --test 1 on stage 2's `_best.pth`. Every loss
+              finite, the checkpoints (`_curr`, `_best`, `_state` + `.json`,
+              `prototypes_best.npy`) written, `_best.pth` loading strictly into
+              a fresh CPU model, prototype counts > 0 for every class in the
+              source labels, exactly one segment-histogram launch per stage-2
+              step, the test mIoU finite in [0, 1]. Printed on `[stages]`
+              lines: ms/step through the loop (StepTimer EMA and mean of
+              steps 2-6) beside phase 3's bare step, the loader's decode path,
+              the prototype pass, eval seconds per split and per tile, the
+              checkpoint chain's seconds, each stage's peak memory.
 Launch counts are zeroed just before phases 2-3, again just before the
-encode of phase 4, again just before its fast decode and again just before
-phase 5's batch call, and read just after each.
+encode of phase 4, again just before its fast decode, again just before
+phase 5's batch call and again just before phase 6's stage-2 run, and read
+just after each.
 TF32 is off in every phase (`torch.backends.cudnn.allow_tf32` and
 `torch.backends.cuda.matmul.allow_tf32` both False): phases 2,
 4 and 5 compute in bf16, and the others hold float32 as float32, as the JAX
@@ -286,10 +308,15 @@ def build_kernels() -> None:
     from regda_tpu_torch.ops.kernels import _build
     names = ('segment_hist', 'layernorm', 'rel_attention', 'upscale', 'two_way',
              'stability', 'mask_stats')
+    from regda_tpu_torch import native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        decode = pool.submit(native.available)   # the loader's host decode (g++)
         list(pool.map(_build.load_library, names))
-    print(f'[kernel] {", ".join(names)} built/loaded in {time.perf_counter() - t0:.2f} s')
+    import shutil
+    why = '' if decode.result() else f' (g++ at {shutil.which("g++")}; or no libpng)'
+    print(f'[kernel] {", ".join(names)} built/loaded in {time.perf_counter() - t0:.2f} s; '
+          f'native tile decode {"built" if decode.result() else "unavailable: Python path"}{why}')
     for name in names:
         for line in _build.build_log(name).splitlines():
             if 'registers' in line or 'spill' in line:
@@ -1213,6 +1240,7 @@ def phase_check(device):
         raise AssertionError('stage-2 prototypes differ between card and CPU')
     print(f'[check] resnet18 stage-2 step 2x64^2, card vs CPU: losses agree '
           f'(rtol 1e-4): {m_gpu}')
+    check_stage1(device)
 
     # LRH on the main path's shape: the card (kernel) vs the CPU (plain)
     rng = np.random.default_rng(5)
@@ -1275,6 +1303,70 @@ def phase_check(device):
                             **SAM_CHECK_TOL)
         print(f'[check] vit_t decode_points_fast vs decode_points on the card, f32 {name}: '
               f'max abs err {err:.3g}')
+
+
+def check_stage1(device) -> None:
+    """One resnet18 stage-1 step (dropout off) in both `align_domain`
+    settings and one prototype-accumulation pass, card against CPU from the
+    same weights, at the recipe's batch of 8 crops a domain (64^2): losses
+    rtol 1e-4, parameters atol 1e-5 (the PPM scale-1 BN, `ppm.0.2`, 1e-4: it
+    normalizes rounding noise in train mode), sums rtol and atol 1e-4,
+    counts equal. (At batch 2 or 4 the train-mode BN of the PPM's scale-2
+    branch normalizes B x 4 values, and cuDNN's and the CPU's roundings
+    there part by tenths of that branch's gradient: 27-28 of 154 tensors
+    end over 1e-5 apart, up to 1.1e-4, against 8e-7 with cuDNN off.)"""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.entry import synthetic_stage2_batch
+    from regda_tpu_torch.models import build_deeplabv2
+    from regda_tpu_torch.models.heads import Dropout2d
+    from regda_tpu_torch.train import create_train_state, make_optimizer
+    from regda_tpu_torch.train.steps import make_stage1_step, proto_accum_step
+
+    def model_on(dev):
+        model = build_deeplabv2('resnet18', 6, generator=torch.Generator().manual_seed(11))
+        for m in model.modules():
+            if isinstance(m, Dropout2d):
+                m.p = 0.0   # the two devices draw different dropout bits
+        return model.to(dev)
+
+    batch_np = synthetic_stage2_batch(np.random.default_rng(4), 8, 64, 6)
+    images_s, label_s, images_t = (torch.from_numpy(a) for a in batch_np[:3])
+    for align in (False, True):
+        runs = {}
+        for dev in ('cpu', device):
+            model = model_on(dev)
+            state = create_train_state(model, make_optimizer(model, 1e-2, 10),
+                                       torch.Generator(device=dev))
+            metrics = make_stage1_step(align_domain=align, num_classes=6)(
+                state, images_s.to(dev), label_s.to(dev), images_t.to(dev))
+            runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                         {k: v.cpu() for k, v in model.state_dict().items()})
+        (m_cpu, p_cpu), (m_gpu, p_gpu) = runs['cpu'], runs[device]
+        for k in m_cpu:
+            if not math.isclose(m_gpu[k], m_cpu[k], rel_tol=1e-4, abs_tol=1e-6):
+                raise AssertionError(f'stage-1 (align {align}) {k}: card {m_gpu[k]} vs CPU {m_cpu[k]}')
+        worst = 0.0
+        for k, want in p_cpu.items():
+            err = float((p_gpu[k] - want).abs().max())
+            if err > (1e-4 if '.ppm.0.2.' in k else 1e-5):
+                raise AssertionError(f'stage-1 (align {align}) {k}: card vs CPU max abs err {err}')
+            worst = max(worst, err)
+        print(f'[check] resnet18 stage-1 step 2x8x64^2 align_domain={align}, card vs CPU: '
+              f'losses agree (rtol 1e-4) {m_gpu}; parameters within {worst:.3g}')
+
+    sums = {}
+    for dev in ('cpu', device):
+        model = model_on(dev)
+        sums[dev] = [t.cpu() for t in proto_accum_step(
+            model, torch.zeros(6, 512, device=dev), torch.zeros(6, 1, device=dev),
+            images_s.to(dev), label_s.to(dev), 6)]
+    (s_cpu, c_cpu), (s_gpu, c_gpu) = sums['cpu'], sums[device]
+    if not torch.equal(c_gpu, c_cpu) or not c_cpu.sum() > 0:
+        raise AssertionError(f'prototype counts: card {c_gpu.ravel()} vs CPU {c_cpu.ravel()}')
+    err = _assert_close('prototype sums card vs CPU', s_gpu, s_cpu, rtol=1e-4, atol=1e-4)
+    print(f'[check] resnet18 prototype accumulation 8x64^2, card vs CPU: counts equal '
+          f'({np.asarray(c_cpu).ravel().astype(int).tolist()}), sums within {err:.3g}')
 
 
 def _crop_scores(gen, tile) -> dict:
@@ -1498,7 +1590,8 @@ def phase_serve(device) -> None:
           f'{ms:.3f} ms per call (CUDA events)')
 
 
-def phase_train(device) -> None:
+def phase_train(device) -> float:
+    """-> ms/step of the bare stage-2 step (steps 1-2)."""
     import torch
     from regda_tpu_torch.entry import stage2_steps
 
@@ -1511,9 +1604,193 @@ def phase_train(device) -> None:
         print(f'[train] step {i}: {seconds[i] * 1e3:.1f} ms {vals}')
     if state.step != 3:
         raise AssertionError(f'step counter {state.step} != 3')
+    ms = sum(seconds[1:]) / 2 * 1e3
     print(f'[train] ResNet-101 stage-2 f32 2x8x512^2: '
-          f'{sum(seconds[1:]) / 2 * 1e3:.1f} ms/step (steps 1-2), '
+          f'{ms:.1f} ms/step (steps 1-2), '
           f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    return ms
+
+
+STAGE_STEPS = 6   # REGDA_FULL_STEPS and REGDA_FULL_STEPS2 of phase 6
+
+
+def _loop_ms(trainer) -> tuple[float, float]:
+    """(StepTimer EMA over steps 2.., their mean) in ms: the loop's pace."""
+    from regda_tpu_torch.utils.profiling import StepTimer
+    timer = StepTimer()
+    for dt in trainer.step_seconds[1:]:
+        timer.record(dt)
+    later = trainer.step_seconds[1:]
+    return timer.ema * 1e3, sum(later) / len(later) * 1e3
+
+
+class _StageProbe:
+    """What one stage CLI run did, read around its calls: the metrics of
+    every `Trainer.run_step`, the host seconds spent waiting in
+    `InfiniteIterator.next` for a batch, and in `evaluate`."""
+
+    def __init__(self):
+        self.metrics, self.batch_wait, self.eval_s = [], [], []
+
+    def patches(self):
+        from unittest import mock
+        from regda_tpu_torch.datasets import InfiniteIterator
+        from regda_tpu_torch.tools import eval as eval_cli
+        from regda_tpu_torch.train.loop import Trainer
+
+        def wrap(fn, out, keep_result=False):
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                result = fn(*args, **kwargs)
+                out.append(result if keep_result else time.perf_counter() - t0)
+                return result
+            return timed
+
+        return (mock.patch.object(Trainer, 'run_step', wrap(Trainer.run_step, self.metrics, True)),
+                mock.patch.object(InfiniteIterator, 'next',
+                                  wrap(InfiniteIterator.next, self.batch_wait)),
+                mock.patch.object(eval_cli, 'evaluate', wrap(eval_cli.evaluate, self.eval_s)))
+
+
+def _stage_run(name: str, fn, argv):
+    """fn(argv) on the card with the peak memory and seconds around it ->
+    (fn's result, seconds, peak GiB, _StageProbe)."""
+    import contextlib
+    import torch
+    probe = _StageProbe()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for patch in probe.patches():
+            stack.enter_context(patch)
+        out = fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f'[stages] {name}: {seconds:.2f} s, peak {peak:.2f} GiB')
+    return out, seconds, peak, probe
+
+
+def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
+    """Phase 6: the four stage CLIs in this process at full width on
+    `configs/st/regda/full_smoke.py`'s synthetic tree (ResNet-101, C = 6,
+    512^2 tiles, batch 8 per domain, f32, TF32 off). Returns the segment
+    histogram's launches in the stage-2 run (exactly one a step)."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from regda_tpu_torch.models import build_deeplabv2
+    from regda_tpu_torch.ops.kernels import segment_hist as sh
+    from regda_tpu_torch.tools import eval as eval_cli
+    from regda_tpu_torch.tools import init_prototypes, train_align_reg, train_src
+    from regda_tpu_torch.utils.checkpoint import load_checkpoint
+    from regda_tpu_torch.utils.tools import import_config
+
+    cfg_name = 'st.regda.full_smoke'
+    env = {'REGDA_FULL_STEPS': str(STAGE_STEPS), 'REGDA_FULL_STEPS2': str(STAGE_STEPS)}
+    saved = {k: os.environ.get(k) for k in (*env, 'REGDA_FULL_ROOT')}
+    with tempfile.TemporaryDirectory(prefix='regda_full_smoke_') as root:
+        os.environ.update(env, REGDA_FULL_ROOT=root)
+        try:
+            t0 = time.perf_counter()
+            cfg = import_config(cfg_name, create=False, copy=False)   # writes the tree
+            print(f'[stages] synthetic tree (32 train, 8 val, 8 test 512^2 tiles a domain, '
+                  f'region maps): {time.perf_counter() - t0:.2f} s')
+            src, align = os.path.join(root, 'log', 'src'), os.path.join(root, 'log', 'align')
+            common = ['--config-path', cfg_name, '--device', device]
+
+            s1, _, s1_peak, probe1 = _stage_run('stage 1 (train_src --align-domain 1)',
+                                                train_src.main, [*common, '--align-domain', '1'])
+            (protos, counts), proto_s, proto_peak, _ = _stage_run(
+                'init_prototypes', init_prototypes.main,
+                [*common, '--ckpt-model', f'{src}/Vaihingen_best.pth',
+                 '--ckpt-proto', f'{src}/prototypes_best'])
+            sh.launches = 0
+            s2, _, s2_peak, probe2 = _stage_run(
+                'stage 2 (train_align_reg --align-domain 1 --refine-label 1 --sam-refine)',
+                train_align_reg.main,
+                [*common, '--ckpt-model', f'{src}/Vaihingen_best.pth',
+                 '--ckpt-proto', f'{src}/prototypes_best.npy', '--align-domain', '1',
+                 '--refine-label', '1', '--sam-refine', '--percent', '0.5'])
+            launches = sh.launches
+            (_, miou), eval_cli_s, eval_peak, probe_eval = _stage_run(
+                'eval --test 1', eval_cli.main,
+                [*common, '--ckpt-path', f'{align}/Vaihingen_best.pth', '--test', '1'])
+
+            for stage, probe in (('stage 1', probe1), ('stage 2', probe2)):
+                seen = probe.metrics
+                if len(seen) != STAGE_STEPS:
+                    raise AssertionError(f'{stage} ran {len(seen)} steps, not {STAGE_STEPS}')
+                for i, m in enumerate(seen):
+                    vals = {k: float(v) for k, v in m.items()}
+                    if not all(math.isfinite(v) for v in vals.values()):
+                        raise AssertionError(f'{stage} step {i}: non-finite loss {vals}')
+                print(f'[stages] {stage} last step losses {vals}')
+            for d in (src, align):
+                for name in ('Vaihingen_curr.pth', 'Vaihingen_best.pth', 'Vaihingen_state.pth',
+                             'Vaihingen_state.pth.json', 'prototypes_best.npy'):
+                    if not os.path.isfile(os.path.join(d, name)):
+                        raise AssertionError(f'{d}/{name} was not written')
+            model = build_deeplabv2(cfg.MODEL, 6)
+            load_checkpoint(model, f'{align}/Vaihingen_best.pth')   # strict keys, on the CPU
+            present = set()
+            for f in os.listdir(os.path.join(root, 'Potsdam', 'ann_dir', 'train')):
+                ids = np.unique(np.asarray(Image.open(
+                    os.path.join(root, 'Potsdam', 'ann_dir', 'train', f))))
+                present.update(int(i) for i in ids if i < 6)
+            if not present or not all(counts[c, 0] > 0 for c in present):
+                raise AssertionError(f'prototype counts {counts.ravel()} for classes {present}')
+            if not np.isfinite(protos).all():
+                raise AssertionError('non-finite prototypes')
+            if launches != STAGE_STEPS:
+                raise AssertionError(f'segment_hist launched {launches} times in '
+                                     f'{STAGE_STEPS} stage-2 steps; expected one a step')
+            if not (math.isfinite(miou) and 0.0 <= miou <= 1.0):
+                raise AssertionError(f'test mIoU {miou}')
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    ema1, mean1 = _loop_ms(s1.trainer)
+    ema2, mean2 = _loop_ms(s2.trainer)
+    bare = f'{bare_ms:.1f}' if bare_ms is not None else 'not measured'
+    print(f'[stages] ResNet-101 f32 2x8x512^2 through the loop, host clock a run_step, '
+          f'steps 2-{STAGE_STEPS}: stage 1 (align) EMA {ema1:.1f} ms/step (mean {mean1:.1f}); '
+          f'stage 2 EMA {ema2:.1f} ms/step (mean {mean2:.1f}); '
+          f'bare stage-2 step of phase 3 {bare} ms/step')
+    print(f'[stages] loader paths: stage 1 source {s1.source.paths}, target {s1.target.paths}; '
+          f'stage 2 source {s2.source.paths}, target {s2.target.paths}')
+    for stage, probe in (('stage 1', probe1), ('stage 2', probe2)):
+        # two next() calls a step; 4 batches an epoch of this tree, so step 5
+        # opens an epoch, whose producer thread starts with an empty queue
+        waits = [sum(probe.batch_wait[i:i + 2]) * 1e3 for i in range(0, len(probe.batch_wait), 2)]
+        later = waits[1:]
+        print(f'[stages] {stage}: host wait for the two batches of each step '
+              f'(InfiniteIterator.next): {", ".join(f"{w:.1f}" for w in waits)} ms; steps '
+              f'2-{STAGE_STEPS} mean {sum(later) / len(later):.1f}, median '
+              f'{sorted(later)[len(later) // 2]:.1f} ms/step')
+    print(f'[stages] prototype pass (init_prototypes, 4 batches of 8): {proto_s:.2f} s; '
+          f'counts {counts.ravel().astype(int).tolist()}')
+    for stage, t in (('stage 1', s1.trainer), ('stage 2', s2.trainer)):
+        evals = ', '.join(f'{x:.3f} s ({x / 8 * 1e3:.1f} ms/tile)' for x in t.eval_seconds)
+        ck = t.ckpt_seconds
+        print(f'[stages] {stage}: val eval (8 tiles, slide) {evals}; checkpoint chain: host '
+              f'copy {ck["snapshot"]:.3f} s, writes {ck["chain"]:.3f} s in the background, '
+              f'join_saver wait {ck["join_wait"]:.3f} s; best mIoU {t.mIoU_max}')
+    test_s = probe_eval.eval_s[0]
+    print(f'[stages] eval CLI on the test split (8 tiles, slide): evaluate {test_s:.3f} s '
+          f'({test_s / 8 * 1e3:.1f} ms/tile, with the checkpoint load and the BN folding), '
+          f'the CLI {eval_cli_s:.2f} s with the model build; mIoU {miou}')
+    print(f'[stages] peak GiB: stage 1 {s1_peak:.2f}, prototypes {proto_peak:.2f}, '
+          f'stage 2 {s2_peak:.2f}, eval {eval_peak:.2f}; segment_hist launches in the '
+          f'stage-2 run {launches} ({STAGE_STEPS} steps)')
+    return launches
 
 
 def _encode_profile(model, images) -> str:
@@ -1975,7 +2252,7 @@ def main(argv=None) -> int:
 
     sh.launches = 0
     phase_serve(device)
-    phase_train(device)
+    bare_ms = phase_train(device)
     record['launches'] = sh.launches
     if record['launches'] < 3:
         raise AssertionError(f'segment_hist launched {record["launches"]} times '
@@ -2007,6 +2284,10 @@ def main(argv=None) -> int:
     for rec, key in ((ln_record, 'layernorm'), (attn_record, 'rel_attention'),
                      (tw_record, 'two_way'), (up_record, 'upscale')):
         rec['launches_regions'] = counts[key]
+    torch.cuda.empty_cache()
+
+    # zeroes the histogram's count just before its stage-2 CLI run
+    record['launches_stages'] = phase_stages(device, bare_ms)
 
     # one record per pallas_call: the blocked entry replaces both blocked TPU
     # kernels, so its record stands for each

@@ -1,9 +1,9 @@
-"""Losses the stage-2 step uses, and the class-balance EMA.
+"""Losses the stage-1 and stage-2 steps use, and the class-balance EMA.
 
 Counterpart of part of regda_tpu/ops/losses.py (reference: regda/gast/
-balance.py:15-101, regda/loss.py:10-47, regda/gast/coral.py:15-47). Logits
-are channel-last (B, H, W, C) or flat (N, C). OHEM, focal, GHM, UVEM and UPS
-are not ported yet.
+balance.py:15-133, regda/loss.py:10-47, regda/gast/coral.py:15-47). Logits
+are channel-last (B, H, W, C) or flat (N, C). Focal, GHM, UVEM and UPS are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -64,6 +64,26 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if pixel_weight is not None:
         nll = nll * pixel_weight
     return nll.mean()
+
+
+def ohem_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                            ignore_label: int = -1, thresh: float = 0.7,
+                            pixel_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Online hard example mining CE (balance.py:104-133), as the JAX
+    package computes it: keep the losses above -log(thresh), or, when fewer
+    than n_valid // 5 are, every loss at or above the n_min-th largest;
+    the mean over the kept pixels."""
+    nll, valid = softmax_cross_entropy_ignore(logits, labels, ignore_label)
+    if pixel_weight is not None:
+        nll = nll * pixel_weight
+    loss_thresh = -torch.log(torch.tensor(thresh, dtype=torch.float32))
+    n_min = valid.sum() // 5
+    sorted_desc = torch.sort(nll, descending=True).values
+    kth = sorted_desc[torch.clamp(n_min - 1, 0, nll.shape[0] - 1)]
+    hard = nll > loss_thresh
+    keep = torch.where(hard.sum() >= n_min, hard, nll >= kth)
+    kept = torch.where(keep, nll, 0.0)
+    return kept.sum() / (keep.sum() + EPS)
 
 
 def prototype_contrastive_loss(prototypes: torch.Tensor, feat: torch.Tensor,

@@ -27,7 +27,7 @@ from regda_tpu_torch.datasets import get_meta
 from regda_tpu_torch.entry import _device
 from regda_tpu_torch.infer import SegInferencer
 from regda_tpu_torch.models import build_deeplabv2
-from regda_tpu_torch.utils.convert import load_segmenter_state_dict
+from regda_tpu_torch.utils.checkpoint import load_checkpoint
 from regda_tpu_torch.utils.tools import import_config, str2bool
 from regda_tpu_torch.utils.viz import VisualizeSegmm
 
@@ -44,16 +44,6 @@ def build_parser() -> ArgumentParser:
     parser.add_argument('--gt', type=str2bool, default=False)
     parser.add_argument('--device', type=str, default='cuda')
     return parser
-
-
-def load_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a `.pth` state_dict into `model` (KeyError on a missing or
-    unexpected key). A directory is refused: the JAX package's Orbax
-    checkpoints are not a format the port reads."""
-    if os.path.isdir(path):
-        raise ValueError(f'{path} is a directory (an Orbax checkpoint?); the port reads '
-                         'a .pth state_dict under the reference key names')
-    load_segmenter_state_dict(model, torch.load(path, map_location='cpu', weights_only=True))
 
 
 def main(argv=None) -> None:

@@ -15,6 +15,7 @@ count is 0 at the first update.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -67,10 +68,14 @@ class TrainState:
 
 def create_train_state(model: DeeplabV2, optimizer: PolySGD,
                        generator: torch.Generator,
-                       prototypes: torch.Tensor) -> TrainState:
-    """State on the model's device around (C, K) initial prototypes (a
-    prototype checkpoint, or zeros as the JAX package starts from)."""
+                       prototypes: Optional[torch.Tensor] = None) -> TrainState:
+    """State on the model's device around (C, K) initial prototypes: a
+    prototype checkpoint, or, when none is given, zeros of the encoder's
+    width (512 for resnet18/34, 2048 otherwise), as the JAX package starts
+    stage 1."""
     device = next(model.parameters()).device
+    if prototypes is None:
+        prototypes = torch.zeros(model.num_classes, model.encoder.resnet.out_channels)
     num_classes = prototypes.shape[0]
     return TrainState(
         model=model, optimizer=optimizer,

@@ -1,11 +1,17 @@
-"""The stage-2 train step (counterpart of part of regda_tpu/train/steps.py).
+"""The stage-1, prototype-init and stage-2 steps (counterparts of
+regda_tpu/train/steps.py:make_stage1_step, make_proto_accum_step and
+make_stage2_step).
 
-Reference: tools/train_align_reg.py:144-196. Same flags, defaults and order
-as `make_stage2_step` (steps.py:139-210): source forward -> prototype EMA ->
-target forward -> soft labels -> refine -> selection -> LRH -> downscale ->
-losses -> clip -> SGD. The pseudo-label branch carries no gradient (the
-JAX package's stop_gradient), so it runs under `torch.no_grad()`; LRH has
-no backward, and autograd carries the rest.
+References: tools/train_src.py:108-141 (stage 1), tools/init_prototypes.py
+:101-112 (prototype init), tools/train_align_reg.py:144-196 (stage 2). Same
+flags, defaults and order as the JAX steps. Stage 2: source forward ->
+prototype EMA -> target forward -> soft labels -> refine -> selection -> LRH
+-> downscale -> losses -> clip -> SGD. The pseudo-label branch carries no
+gradient (the JAX package's stop_gradient), so it runs under
+`torch.no_grad()`; LRH has no backward, and autograd carries the rest.
+
+A train step updates the state in place (model, optimizer, prototypes,
+class balance, step count) and returns detached 0-dim loss tensors.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 from regda_tpu_torch.ops import losses as L
 from regda_tpu_torch.ops.labels import downscale_label, one_hot_ignore
 from regda_tpu_torch.ops.lrh import homogenize
-from regda_tpu_torch.ops.prototypes import prototype_update
+from regda_tpu_torch.ops.prototypes import prototype_accumulate, prototype_update
 from regda_tpu_torch.ops.pseudo import pseudo_selection
 from regda_tpu_torch.ops.refine import label_refine
 from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
@@ -33,8 +39,11 @@ def _source_loss(ls: str, bcs: bool, num_classes: int, class_temp: float,
     """fn(preds, labels, cb_state) -> (loss, cb_state), one loss per head
     averaged, with the class-balance EMA updated once per head (as the
     reference's loss_calc)."""
-    if ls != 'CrossEntropy':
-        raise ValueError(f'source loss {ls!r} is not ported yet')
+    losses = {'CrossEntropy': L.cross_entropy_loss,
+              'OhemCrossEntropy': L.ohem_cross_entropy_loss}
+    if ls not in losses:
+        raise ValueError(f'source loss {ls!r}: expected one of {sorted(losses)}')
+    base = losses[ls]
 
     def fn(preds, labels, cb_state):
         hw = tuple(labels.shape[-2:])
@@ -46,11 +55,65 @@ def _source_loss(ls: str, bcs: bool, num_classes: int, class_temp: float,
                 w, cb_state = L.class_balance_weights(
                     cb_state, labels, num_classes, ignore_label,
                     temperature=class_temp)
-            total = total + L.cross_entropy_loss(p, labels, ignore_label,
-                                                 pixel_weight=w)
+            total = total + base(p, labels, ignore_label, pixel_weight=w)
         return total / len(preds), cb_state
 
     return fn
+
+
+def make_stage1_step(*, align_domain: bool = False, ls: str = 'CrossEntropy',
+                     bcs: bool = False, class_temp: float = 2.0,
+                     num_classes: int = 6, ignore_label: int = -1) -> Callable:
+    """Returns step(state, images_s, label_s, images_t) -> metrics: CE on
+    the source (both heads averaged, optionally class-balanced) and, with
+    `align_domain`, CORAL between the source and target features. The
+    target forward runs only with `align_domain`, as in the JAX step, so
+    without it the BN statistics see no target batch."""
+    src_loss = _source_loss(ls, bcs, num_classes, class_temp, ignore_label)
+
+    def step(state: TrainState, images_s, label_s, images_t):
+        model = state.model
+        model.train()
+        p_s1, p_s2, feat_s = model(images_s, state.generator)
+        loss_seg, cb_state = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
+        if align_domain:
+            _, _, feat_t = model(images_t, state.generator)
+            loss_domain = L.coral_loss(_flat(feat_s), _flat(feat_t))
+            loss = loss_seg + loss_domain
+        else:
+            loss_domain = torch.zeros((), device=loss_seg.device)
+            loss = loss_seg
+
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.class_freq_s = cb_state
+        state.step += 1
+        return {'total': loss.detach(), 'loss_seg': loss_seg.detach(),
+                'loss_domain': loss_domain.detach()}
+
+    return step
+
+
+@torch.no_grad()
+def proto_accum_step(model, data_sum, data_cnt, images_s, label_s,
+                     num_classes: int, ignore_label: int = -1):
+    """One source pass of prototype init: per-class sums and counts of the
+    stride-16 features under the 16x majority-vote labels -> (sum, cnt).
+
+    The reference never switches to eval here (init_prototypes.py:87-109),
+    so the features come from the train-mode forward (batch statistics);
+    the JAX step discards that forward's statistics update, so every BN
+    running statistic is restored afterwards. Only the encoder runs: the
+    heads' outputs are discarded there and change nothing that is kept."""
+    model.train()
+    saved = [b.clone() for b in model.buffers()]
+    feat = model.features(images_s).permute(0, 2, 3, 1)
+    for b, s in zip(model.buffers(), saved):
+        b.copy_(s)
+    lbl_down = downscale_label(label_s, 16, num_classes, ignore_label)
+    onehot = one_hot_ignore(lbl_down.reshape(-1), num_classes, ignore_label)
+    return prototype_accumulate(data_sum, data_cnt, _flat(feat.float()), onehot)
 
 
 def make_stage2_step(*, align_domain: bool = True,
@@ -61,10 +124,7 @@ def make_stage2_step(*, align_domain: bool = True,
                      pcl_temp: float = 8.0, proto_decay: float = 0.996,
                      num_classes: int = 6, ignore_label: int = -1,
                      cutoff_top: float = 0.8, cutoff_low: float = 0.6) -> Callable:
-    """Returns step(state, images_s, label_s, images_t, regs_t) -> metrics.
-
-    The step updates `state` in place (model, optimizer, prototypes, class
-    balance, step count) and returns detached 0-dim loss tensors."""
+    """Returns step(state, images_s, label_s, images_t, regs_t) -> metrics."""
     src_loss = _source_loss(ls, bcs, num_classes, class_temp, ignore_label)
 
     def step(state: TrainState, images_s, label_s, images_t, regs_t):

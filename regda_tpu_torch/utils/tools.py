@@ -2,7 +2,8 @@
 
 Parity targets: regda/utils/tools.py:24-30 (str2bool), :173-181
 (import_config: dotted-path module import + SNAPSHOT_DIR postfix + config
-provenance copy), :221-237 (console+file logger), :401-407 (parameter count).
+provenance copy), :221-237 (console+file logger), :401-407 (parameter count);
+`logging_args` / `logging_cfg` as regda_tpu/utils/tools.py:60-73.
 Configs resolve under the port's own `regda_tpu_torch.configs` package.
 """
 
@@ -13,6 +14,7 @@ import importlib
 import logging
 import os
 import shutil
+import sys
 import time
 from typing import Mapping
 
@@ -32,8 +34,14 @@ def import_config(config_name: str, prefix: str = 'regda_tpu_torch.configs',
                   copy: bool = True, create: bool = True, postfix: str = ''):
     """Import `<prefix>.<config_name>` (e.g. 'st.regda.2vaihingen'); append
     `postfix` to its SNAPSHOT_DIR, create that directory and copy the config
-    file into it as config.py, as asked."""
-    m = importlib.import_module(name=f'{prefix}.{config_name}')
+    file into it as config.py, as asked.
+
+    Each call executes the config module afresh, so a second call in one
+    process (another stage, another postfix) starts from the config's own
+    SNAPSHOT_DIR, not from the one an earlier call extended."""
+    name = f'{prefix}.{config_name}'
+    sys.modules.pop(name, None)
+    m = importlib.import_module(name)
     m.SNAPSHOT_DIR += postfix
     if create:
         os.makedirs(m.SNAPSHOT_DIR, exist_ok=True)
@@ -59,6 +67,22 @@ def get_console_file_logger(name: str, level=logging.INFO,
     return logger
 
 
+def logging_args(args, logger):
+    logger.info('>>>>>>>>>>>>>>>>>>>>> arguments logging begin:')
+    for k, v in vars(args).items():
+        logger.info(f'{k}={v}')
+    logger.info('<<<<<<<<<<<<<<<<<<<<< arguments logging end!')
+
+
+def logging_cfg(cfg, logger):
+    logger.info('>>>>>>>>>>>>>>>>>>>>> config logging begin:')
+    logger.info(cfg.__name__)
+    for k, v in vars(cfg).items():
+        if not str(k).startswith('__'):
+            logger.info(f'{k}={v}')
+    logger.info('<<<<<<<<<<<<<<<<<<<<< config logging end!')
+
+
 def default_seed() -> int:
     """2333 (the reference's seed_torch(2333), tools/train_src.py:169-172)
     unless REGDA_SEED overrides it."""
@@ -74,6 +98,13 @@ def seed_all(seed: int = None):
     os.environ['PYTHONHASHSEED'] = str(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def disable_tf32() -> None:
+    """Hold float32 as float32 on the card: cuDNN's convolutions and cuBLAS's
+    matmuls would otherwise take TF32's 10-bit mantissa by default."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 _STAT_SUFFIXES = ('running_mean', 'running_var', 'num_batches_tracked')
