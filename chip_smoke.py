@@ -47,7 +47,10 @@ Phases (any failure raises, and the exit code is non-zero):
               gives the blocked ones through the interleaved stability entry;
               a resnet18 stage-1 step (both align settings; 8 crops a domain
               at 64^2: losses rtol 1e-4, parameters atol 1e-5, `ppm.0.2`
-              1e-4) and a prototype pass (sums rtol/atol 1e-4, counts equal).
+              1e-4) and a prototype pass (sums rtol/atol 1e-4, counts equal);
+              a resnet18 stage-3 step with lt='uvem' and bct, and with
+              lt='ghm' (the same sizes and tolerances; prototypes, both
+              class-balance EMAs and the GHM histogram too).
   2. serve    `serve_entry()`: a `SegInferencer` over ResNet-101 DeepLabv2
               (C = 6) with seeded weights and BN statistics, bf16 compute with
               f32 weights, BN folded into the convs and both PPM heads'
@@ -65,7 +68,10 @@ Phases (any failure raises, and the exit code is non-zero):
   3. train    `stage2_steps(3)`: ResNet-101, C = 6, 512^2 crops, batch 8 per
               domain, f32, with align_domain, refine_label and sam_refine.
               Every loss finite, step count 3, and the segment-histogram
-              kernel launched at least once per step.
+              kernel launched at least once per step. Then `stage3_steps(3)`
+              at the same shape (lt='uvem', refine_label and sam_refine on,
+              seeded soft pseudo-labels): every loss finite, exactly one
+              histogram launch a step; ms/step (steps 1-2) and peak of each.
   4. sam      `sam_entry()`: SAM ViT-B at full width and depth, bf16 compute
               with f32 weights: `encode` of the 5-crop pyramid of one tile
               (5 x 1024^2) then `decode_points` of 64 grid points on crop 0.
@@ -105,7 +111,7 @@ Phases (any failure raises, and the exit code is non-zero):
               `generate_regions_batch` and `generate_regions` give the maps
               of `generate()` + `regions_from_anns`, whose boxes, areas and
               paint are numpy on the host.
-  6. stages   `phase_stages()`: the four stage CLIs in this process through
+  6. stages   `phase_stages()`: the five stage CLIs in this process through
               their `main(argv)`, on `configs/st/regda/full_smoke.py`'s
               synthetic tree written to a fresh temporary directory
               (REGDA_FULL_ROOT; ResNet-101, C = 6, 512^2 tiles, batch 8 per
@@ -113,20 +119,28 @@ Phases (any failure raises, and the exit code is non-zero):
               f32 with TF32 off, STAGE_STEPS steps a stage: train_src
               --align-domain 1; init_prototypes on its `_best.pth`;
               train_align_reg --align-domain 1 --refine-label 1 --sam-refine
-              --percent 0.5; eval --test 1 on stage 2's `_best.pth`. Every loss
-              finite, the checkpoints (`_curr`, `_best`, `_state` + `.json`,
-              `prototypes_best.npy`) written, `_best.pth` loading strictly into
-              a fresh CPU model, prototype counts > 0 for every class in the
-              source labels, exactly one segment-histogram launch per stage-2
-              step, the test mIoU finite in [0, 1]. Printed on `[stages]`
-              lines: ms/step through the loop (StepTimer EMA and mean of
-              steps 2-6) beside phase 3's bare step, the loader's decode path,
-              the prototype pass, eval seconds per split and per tile, the
-              checkpoint chain's seconds, each stage's peak memory.
-Launch counts are zeroed just before phases 2-3, again just before the
-encode of phase 4, again just before its fast decode, again just before
-phase 5's batch call and again just before phase 6's stage-2 run, and read
-just after each.
+              --percent 0.5; eval --test 1 on stage 2's `_best.pth`;
+              train_ssl_reg --gen 1 --refine-label 1 --sam-refine --percent
+              0.5 --lt uvem from stage 2's `_best.pth` and
+              `prototypes_best.npy`; eval --test 1 on stage 3's `_best.pth`.
+              Every loss finite, the checkpoints (`_curr`, `_best`, `_state` +
+              `.json`, and `prototypes_best.npy` for stages 1-2) written,
+              both `_best.pth` loading strictly into a fresh CPU model,
+              prototype counts > 0 for every class in the source labels, the
+              32 pseudo-label maps (512, 512, 6) float32 summing to 1 within
+              1e-3 (read before the CLI removes them) and their directory
+              gone at the end, exactly one segment-histogram launch per
+              stage-2 and per stage-3 step, both test mIoUs finite in [0, 1].
+              Printed on `[stages]` lines: ms/step through the loop (StepTimer
+              EMA and mean of steps 2-6) beside phase 3's bare steps, the
+              loader's decode path, pseudo generation's seconds and ms a
+              tile, the prototype pass, the batch waits of each step, eval
+              seconds per split and per tile, the checkpoint chain's seconds,
+              each stage's peak memory.
+Launch counts are zeroed just before phases 2-3, again just before phase
+3's stage-3 steps, just before the encode of phase 4, again just before its
+fast decode, again just before phase 5's batch call and again just before
+phase 6's stage-2 run and its stage-3 run, and read just after each.
 TF32 is off in every phase (`torch.backends.cudnn.allow_tf32` and
 `torch.backends.cuda.matmul.allow_tf32` both False): phases 2,
 4 and 5 compute in bf16, and the others hold float32 as float32, as the JAX
@@ -135,7 +149,11 @@ train path does.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the card's name and power limit, and the line before that the
 kernels' JSON record, one for each of the JAX package's nine `pallas_call`s
-(the blocked stability entry stands for both blocked TPU kernels). Without a
+(the blocked stability entry stands for both blocked TPU kernels); the
+histogram's record carries its launches in phase 3's stage-2 steps
+(`launches`), in phase 6's stage-2 and stage-3 CLI runs (`launches_stages`,
+`launches_stage3`) and in phase 3's bare stage-3 steps
+(`launches_stage3_bare`). Without a
 CUDA device the script exits non-zero at once and prints no result.
 
     python3 chip_smoke.py --parent DIR
@@ -1241,6 +1259,7 @@ def phase_check(device):
     print(f'[check] resnet18 stage-2 step 2x64^2, card vs CPU: losses agree '
           f'(rtol 1e-4): {m_gpu}')
     check_stage1(device)
+    check_stage3(device)
 
     # LRH on the main path's shape: the card (kernel) vs the CPU (plain)
     rng = np.random.default_rng(5)
@@ -1367,6 +1386,60 @@ def check_stage1(device) -> None:
     err = _assert_close('prototype sums card vs CPU', s_gpu, s_cpu, rtol=1e-4, atol=1e-4)
     print(f'[check] resnet18 prototype accumulation 8x64^2, card vs CPU: counts equal '
           f'({np.asarray(c_cpu).ravel().astype(int).tolist()}), sums within {err:.3g}')
+
+
+def check_stage3(device) -> None:
+    """One resnet18 stage-3 step (dropout off; refine and LRH on) with
+    `lt='uvem'` and `bct`, and with `lt='ghm'`, card against CPU from the
+    same weights, prototypes and batch (8 crops a domain at 64^2, seeded
+    soft labels), at check_stage1's tolerances: losses rtol 1e-4,
+    parameters atol 1e-5 (`ppm.0.2` 1e-4), prototypes rtol 1e-4 / atol
+    1e-5, the class-balance EMAs rtol 1e-6; the GHM histogram EMA rtol 1e-6
+    in its total and each bin within 0.05 absolute: a pixel whose
+    g = |p_y - 1| lies within the devices' rounding of a bin edge moves
+    0.01 between two bins, so five such pixels a bin are allowed (printed)."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.entry import stage3_state, synthetic_soft_labels, synthetic_stage2_batch
+    from regda_tpu_torch.models.heads import Dropout2d
+
+    rng = np.random.default_rng(12)
+    batch_np = synthetic_stage2_batch(rng, 8, 64, 6)
+    batch_np = (*batch_np[:3], synthetic_soft_labels(rng, 8, 64), batch_np[3])
+    for flags in (dict(lt='uvem', bct=True), dict(lt='ghm')):
+        runs = {}
+        for dev in ('cpu', device):
+            state, step = stage3_state(dev, resnet='resnet18', seed=13, **flags)
+            for m in state.model.modules():
+                if isinstance(m, Dropout2d):
+                    m.p = 0.0   # the two devices draw different dropout bits
+            metrics = step(state, *(torch.from_numpy(a).to(dev) for a in batch_np))
+            runs[dev] = ({k: float(v) for k, v in metrics.items()},
+                         {k: v.cpu() for k, v in state.model.state_dict().items()},
+                         state.prototypes.cpu(), state.class_freq_s.freq.cpu(),
+                         state.class_freq_t.freq.cpu(), state.ghm.acc_sum.cpu())
+        (m_cpu, p_cpu, *rest_cpu), (m_gpu, p_gpu, *rest_gpu) = runs['cpu'], runs[device]
+        what = f"stage-3 ({flags['lt']})"
+        for k in m_cpu:
+            if not math.isclose(m_gpu[k], m_cpu[k], rel_tol=1e-4, abs_tol=1e-6):
+                raise AssertionError(f'{what} {k}: card {m_gpu[k]} vs CPU {m_cpu[k]}')
+        worst = 0.0
+        for k, want in p_cpu.items():
+            err = float((p_gpu[k] - want).abs().max())
+            if err > (1e-4 if '.ppm.0.2.' in k else 1e-5):
+                raise AssertionError(f'{what} {k}: card vs CPU max abs err {err}')
+            worst = max(worst, err)
+        protos_err = _assert_close(f'{what} prototypes', rest_gpu[0], rest_cpu[0],
+                                   rtol=1e-4, atol=1e-5)
+        for name, g, w in zip(('class_freq_s', 'class_freq_t'), rest_gpu[1:3], rest_cpu[1:3]):
+            _assert_close(f'{what} {name}', g, w, rtol=1e-6, atol=0.0)
+        acc_gpu, acc_cpu = rest_gpu[3], rest_cpu[3]
+        if not math.isclose(float(acc_gpu.sum()), float(acc_cpu.sum()), rel_tol=1e-6):
+            raise AssertionError(f'{what} GHM total: card {acc_gpu.sum()} vs CPU {acc_cpu.sum()}')
+        ghm_err = _assert_close(f'{what} GHM bins', acc_gpu, acc_cpu, rtol=0.0, atol=0.05)
+        print(f'[check] resnet18 stage-3 step 2x8x64^2 {flags}, card vs CPU: losses agree '
+              f'(rtol 1e-4) {m_gpu}; parameters within {worst:.3g}, prototypes within '
+              f'{protos_err:.3g}; GHM total {float(acc_gpu.sum()):.4f}, bins within {ghm_err:.3g}')
 
 
 def _crop_scores(gen, tile) -> dict:
@@ -1590,25 +1663,67 @@ def phase_serve(device) -> None:
           f'{ms:.3f} ms per call (CUDA events)')
 
 
-def phase_train(device) -> float:
-    """-> ms/step of the bare stage-2 step (steps 1-2)."""
+def phase_train(device) -> dict:
+    """The bare stage-2 step, `stage2_steps(3)`, then the bare stage-3 step,
+    `stage3_steps(3)` (lt='uvem', refine and LRH on, seeded soft labels),
+    each with its peak memory; the histogram's count is zeroed before the
+    stage-3 run. -> {'stage2_ms', 'stage3_ms' (steps 1-2), 'stage2_launches'
+    (since the caller zeroed the count), 'stage3_launches'}."""
     import torch
-    from regda_tpu_torch.entry import stage2_steps
+    from regda_tpu_torch.entry import stage2_steps, stage3_steps
+    from regda_tpu_torch.ops.kernels import segment_hist as sh
 
-    torch.cuda.reset_peak_memory_stats()
-    state, metrics, seconds = stage2_steps(3, device)
-    for i, m in enumerate(metrics):
-        vals = {k: float(v) for k, v in m.items()}
-        if not all(math.isfinite(v) for v in vals.values()):
-            raise AssertionError(f'step {i}: non-finite loss {vals}')
-        print(f'[train] step {i}: {seconds[i] * 1e3:.1f} ms {vals}')
-    if state.step != 3:
-        raise AssertionError(f'step counter {state.step} != 3')
-    ms = sum(seconds[1:]) / 2 * 1e3
-    print(f'[train] ResNet-101 stage-2 f32 2x8x512^2: '
-          f'{ms:.1f} ms/step (steps 1-2), '
-          f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    return ms
+    out = {}
+    for stage, run in ((2, stage2_steps), (3, stage3_steps)):
+        if stage == 3:
+            out['stage2_launches'] = sh.launches
+            sh.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics, seconds = run(3, device)
+        for i, m in enumerate(metrics):
+            vals = {k: float(v) for k, v in m.items()}
+            if not all(math.isfinite(v) for v in vals.values()):
+                raise AssertionError(f'stage-{stage} step {i}: non-finite loss {vals}')
+            print(f'[train] stage {stage} step {i}: {seconds[i] * 1e3:.1f} ms {vals}')
+        if state.step != 3:
+            raise AssertionError(f'stage-{stage} step counter {state.step} != 3')
+        ms = sum(seconds[1:]) / 2 * 1e3
+        out[f'stage{stage}_ms'] = ms
+        extra = (f'; segment_hist launches {sh.launches} in 3 steps'
+                 if stage == 3 else '')
+        print(f'[train] ResNet-101 stage-{stage} f32 2x8x512^2: '
+              f'{ms:.1f} ms/step (steps 1-2), '
+              f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{extra}')
+        del state
+    out['stage3_launches'] = sh.launches
+    if out['stage3_launches'] != 3:
+        raise AssertionError(f'segment_hist launched {out["stage3_launches"]} times in 3 '
+                             f'stage-3 steps; expected one a step')
+    train_split(device)
+    return out
+
+
+def train_split(device) -> None:
+    """Device time of one bare stage-2 and one bare stage-3 step by kind of
+    kernel (torch.profiler, `serve_split`'s kinds), on a fresh state and a
+    seeded batch each: where stage 3's extra time goes."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.entry import (stage2_state, stage3_state, synthetic_soft_labels,
+                                       synthetic_stage2_batch)
+    rng = np.random.default_rng(2)
+    images_s, label_s, images_t, regs = synthetic_stage2_batch(rng, 8, 512)
+    soft = synthetic_soft_labels(rng, 8, 512)
+    for stage, make, arrays in ((2, stage2_state, (images_s, label_s, images_t, regs)),
+                                (3, stage3_state, (images_s, label_s, images_t, soft, regs))):
+        state, step = make(device)
+        batch = [torch.from_numpy(a).to(device) for a in arrays]
+        step(state, *batch)      # warm
+        ms, count = serve_split(lambda: step(state, *batch))
+        print(f'[train] one stage-{stage} step under torch.profiler: {_split_line(ms, count)}')
+        del state, batch
+        torch.cuda.empty_cache()
 
 
 STAGE_STEPS = 6   # REGDA_FULL_STEPS and REGDA_FULL_STEPS2 of phase 6
@@ -1627,15 +1742,38 @@ def _loop_ms(trainer) -> tuple[float, float]:
 class _StageProbe:
     """What one stage CLI run did, read around its calls: the metrics of
     every `Trainer.run_step`, the host seconds spent waiting in
-    `InfiniteIterator.next` for a batch, and in `evaluate`."""
+    `InfiniteIterator.next` for a batch, and in `evaluate`; for stage 3,
+    `gener_target_pseudo`'s seconds and what it wrote (read before the CLI
+    removes it): file count, shapes, the worst |sum of probabilities - 1|."""
 
     def __init__(self):
-        self.metrics, self.batch_wait, self.eval_s = [], [], []
+        self.metrics, self.batch_wait, self.eval_s, self.pseudo = [], [], [], []
+
+    def _pseudo(self, gen):
+        def probed(cfg, inferencer, loader, path, **kwargs):
+            import os
+            import numpy as np
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen(cfg, inferencer, loader, path, **kwargs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            shapes, worst = set(), 0.0
+            files = sorted(os.listdir(path))
+            for f in files:
+                a = np.load(os.path.join(path, f))
+                shapes.add((a.shape, str(a.dtype)))
+                worst = max(worst, float(np.abs(a.sum(-1, dtype=np.float64) - 1.0).max()))
+            self.pseudo.append(dict(seconds=seconds, files=len(files), shapes=shapes,
+                                    worst=worst))
+        return probed
 
     def patches(self):
         from unittest import mock
         from regda_tpu_torch.datasets import InfiniteIterator
         from regda_tpu_torch.tools import eval as eval_cli
+        from regda_tpu_torch.tools import train_ssl_reg
         from regda_tpu_torch.train.loop import Trainer
 
         def wrap(fn, out, keep_result=False):
@@ -1649,7 +1787,9 @@ class _StageProbe:
         return (mock.patch.object(Trainer, 'run_step', wrap(Trainer.run_step, self.metrics, True)),
                 mock.patch.object(InfiniteIterator, 'next',
                                   wrap(InfiniteIterator.next, self.batch_wait)),
-                mock.patch.object(eval_cli, 'evaluate', wrap(eval_cli.evaluate, self.eval_s)))
+                mock.patch.object(eval_cli, 'evaluate', wrap(eval_cli.evaluate, self.eval_s)),
+                mock.patch.object(train_ssl_reg, 'gener_target_pseudo',
+                                  self._pseudo(train_ssl_reg.gener_target_pseudo)))
 
 
 def _stage_run(name: str, fn, argv):
@@ -1672,11 +1812,13 @@ def _stage_run(name: str, fn, argv):
     return out, seconds, peak, probe
 
 
-def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
-    """Phase 6: the four stage CLIs in this process at full width on
+def phase_stages(device='cuda', bare: dict | None = None) -> dict:
+    """Phase 6: the five stage CLIs in this process at full width on
     `configs/st/regda/full_smoke.py`'s synthetic tree (ResNet-101, C = 6,
-    512^2 tiles, batch 8 per domain, f32, TF32 off). Returns the segment
-    histogram's launches in the stage-2 run (exactly one a step)."""
+    512^2 tiles, batch 8 per domain, f32, TF32 off). `bare`: phase 3's
+    bare-step times, printed beside the loop's. Returns the segment
+    histogram's launches in the stage-2 and the stage-3 runs (exactly one a
+    step each), zeroed just before each run: {'stage2': n, 'stage3': n}."""
     import os
     import tempfile
     import numpy as np
@@ -1685,13 +1827,14 @@ def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
     from regda_tpu_torch.models import build_deeplabv2
     from regda_tpu_torch.ops.kernels import segment_hist as sh
     from regda_tpu_torch.tools import eval as eval_cli
-    from regda_tpu_torch.tools import init_prototypes, train_align_reg, train_src
+    from regda_tpu_torch.tools import init_prototypes, train_align_reg, train_src, train_ssl_reg
     from regda_tpu_torch.utils.checkpoint import load_checkpoint
     from regda_tpu_torch.utils.tools import import_config
 
     cfg_name = 'st.regda.full_smoke'
-    env = {'REGDA_FULL_STEPS': str(STAGE_STEPS), 'REGDA_FULL_STEPS2': str(STAGE_STEPS)}
+    env = {f'REGDA_FULL_STEPS{n}': str(STAGE_STEPS) for n in ('', '2', '3')}
     saved = {k: os.environ.get(k) for k in (*env, 'REGDA_FULL_ROOT')}
+    launches = {}
     with tempfile.TemporaryDirectory(prefix='regda_full_smoke_') as root:
         os.environ.update(env, REGDA_FULL_ROOT=root)
         try:
@@ -1699,7 +1842,8 @@ def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
             cfg = import_config(cfg_name, create=False, copy=False)   # writes the tree
             print(f'[stages] synthetic tree (32 train, 8 val, 8 test 512^2 tiles a domain, '
                   f'region maps): {time.perf_counter() - t0:.2f} s')
-            src, align = os.path.join(root, 'log', 'src'), os.path.join(root, 'log', 'align')
+            log = os.path.join(root, 'log')
+            src, align, ssl = (os.path.join(log, d) for d in ('src', 'align', 'ssl'))
             common = ['--config-path', cfg_name, '--device', device]
 
             s1, _, s1_peak, probe1 = _stage_run('stage 1 (train_src --align-domain 1)',
@@ -1715,12 +1859,23 @@ def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
                 [*common, '--ckpt-model', f'{src}/Vaihingen_best.pth',
                  '--ckpt-proto', f'{src}/prototypes_best.npy', '--align-domain', '1',
                  '--refine-label', '1', '--sam-refine', '--percent', '0.5'])
-            launches = sh.launches
+            launches['stage2'] = sh.launches
             (_, miou), eval_cli_s, eval_peak, probe_eval = _stage_run(
-                'eval --test 1', eval_cli.main,
+                'eval --test 1 (stage 2)', eval_cli.main,
                 [*common, '--ckpt-path', f'{align}/Vaihingen_best.pth', '--test', '1'])
+            sh.launches = 0
+            s3, s3_s, s3_peak, probe3 = _stage_run(
+                'stage 3 (train_ssl_reg --gen 1 --refine-label 1 --sam-refine --lt uvem)',
+                train_ssl_reg.main,
+                [*common, '--ckpt-model', f'{align}/Vaihingen_best.pth',
+                 '--ckpt-proto', f'{align}/prototypes_best.npy', '--gen', '1',
+                 '--refine-label', '1', '--sam-refine', '--percent', '0.5', '--lt', 'uvem'])
+            launches['stage3'] = sh.launches
+            (_, miou3), eval3_cli_s, eval3_peak, probe_eval3 = _stage_run(
+                'eval --test 1 (stage 3)', eval_cli.main,
+                [*common, '--ckpt-path', f'{ssl}/Vaihingen_best.pth', '--test', '1'])
 
-            for stage, probe in (('stage 1', probe1), ('stage 2', probe2)):
+            for stage, probe in (('stage 1', probe1), ('stage 2', probe2), ('stage 3', probe3)):
                 seen = probe.metrics
                 if len(seen) != STAGE_STEPS:
                     raise AssertionError(f'{stage} ran {len(seen)} steps, not {STAGE_STEPS}')
@@ -1729,13 +1884,24 @@ def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
                     if not all(math.isfinite(v) for v in vals.values()):
                         raise AssertionError(f'{stage} step {i}: non-finite loss {vals}')
                 print(f'[stages] {stage} last step losses {vals}')
-            for d in (src, align):
-                for name in ('Vaihingen_curr.pth', 'Vaihingen_best.pth', 'Vaihingen_state.pth',
-                             'Vaihingen_state.pth.json', 'prototypes_best.npy'):
+            for d in (src, align, ssl):
+                names = ['Vaihingen_curr.pth', 'Vaihingen_best.pth', 'Vaihingen_state.pth',
+                         'Vaihingen_state.pth.json']
+                if d != ssl:
+                    names.append('prototypes_best.npy')
+                for name in names:
                     if not os.path.isfile(os.path.join(d, name)):
                         raise AssertionError(f'{d}/{name} was not written')
-            model = build_deeplabv2(cfg.MODEL, 6)
-            load_checkpoint(model, f'{align}/Vaihingen_best.pth')   # strict keys, on the CPU
+            if os.path.exists(s3.pseudo_label):
+                raise AssertionError(f'{s3.pseudo_label} was not removed')
+            gen = probe3.pseudo
+            if (len(gen) != 1 or gen[0]['files'] != 32
+                    or gen[0]['shapes'] != {((512, 512, 6), 'float32')}
+                    or not gen[0]['worst'] <= 1e-3):
+                raise AssertionError(f'pseudo-labels: {gen}; expected 32 (512, 512, 6) float32 '
+                                     f'maps whose probabilities sum to 1 within 1e-3')
+            for path in (f'{align}/Vaihingen_best.pth', f'{ssl}/Vaihingen_best.pth'):
+                load_checkpoint(build_deeplabv2(cfg.MODEL, 6), path)  # strict keys, on the CPU
             present = set()
             for f in os.listdir(os.path.join(root, 'Potsdam', 'ann_dir', 'train')):
                 ids = np.unique(np.asarray(Image.open(
@@ -1745,11 +1911,13 @@ def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
                 raise AssertionError(f'prototype counts {counts.ravel()} for classes {present}')
             if not np.isfinite(protos).all():
                 raise AssertionError('non-finite prototypes')
-            if launches != STAGE_STEPS:
-                raise AssertionError(f'segment_hist launched {launches} times in '
-                                     f'{STAGE_STEPS} stage-2 steps; expected one a step')
-            if not (math.isfinite(miou) and 0.0 <= miou <= 1.0):
-                raise AssertionError(f'test mIoU {miou}')
+            for stage, n in launches.items():
+                if n != STAGE_STEPS:
+                    raise AssertionError(f'segment_hist launched {n} times in {STAGE_STEPS} '
+                                         f'{stage} steps; expected one a step')
+            for m in (miou, miou3):
+                if not (math.isfinite(m) and 0.0 <= m <= 1.0):
+                    raise AssertionError(f'test mIoU {m}')
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -1757,16 +1925,25 @@ def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
                 else:
                     os.environ[k] = v
 
-    ema1, mean1 = _loop_ms(s1.trainer)
-    ema2, mean2 = _loop_ms(s2.trainer)
-    bare = f'{bare_ms:.1f}' if bare_ms is not None else 'not measured'
+    loops = {stage: _loop_ms(run.trainer) for stage, run in
+             (('stage 1', s1), ('stage 2', s2), ('stage 3', s3))}
+    bare = bare or {}
+    bare2, bare3 = (f'{bare[k]:.1f}' if k in bare else 'not measured'
+                    for k in ('stage2_ms', 'stage3_ms'))
     print(f'[stages] ResNet-101 f32 2x8x512^2 through the loop, host clock a run_step, '
-          f'steps 2-{STAGE_STEPS}: stage 1 (align) EMA {ema1:.1f} ms/step (mean {mean1:.1f}); '
-          f'stage 2 EMA {ema2:.1f} ms/step (mean {mean2:.1f}); '
-          f'bare stage-2 step of phase 3 {bare} ms/step')
-    print(f'[stages] loader paths: stage 1 source {s1.source.paths}, target {s1.target.paths}; '
-          f'stage 2 source {s2.source.paths}, target {s2.target.paths}')
-    for stage, probe in (('stage 1', probe1), ('stage 2', probe2)):
+          f'steps 2-{STAGE_STEPS}: '
+          + '; '.join(f'{stage} EMA {ema:.1f} ms/step (mean {mean:.1f})'
+                      for stage, (ema, mean) in loops.items())
+          + f'; bare steps of phase 3: stage 2 {bare2}, stage 3 {bare3} ms/step')
+    print('[stages] loader paths: ' + '; '.join(
+        f'{stage} source {run.source.paths}, target {run.target.paths}'
+        for stage, run in (('stage 1', s1), ('stage 2', s2), ('stage 3', s3))))
+    gen = probe3.pseudo[0]
+    print(f'[stages] stage 3 pseudo-label generation (32 target tiles, slide + TTA, 8 views '
+          f'of 512^2 a tile, f32): {gen["seconds"]:.2f} s, {gen["seconds"] / 32 * 1e3:.1f} '
+          f'ms/tile; 32 maps (512, 512, 6) float32, sums within {gen["worst"]:.2g} of 1; '
+          f'the stage-3 CLI {s3_s:.2f} s in all')
+    for stage, probe in (('stage 1', probe1), ('stage 2', probe2), ('stage 3', probe3)):
         # two next() calls a step; 4 batches an epoch of this tree, so step 5
         # opens an epoch, whose producer thread starts with an empty queue
         waits = [sum(probe.batch_wait[i:i + 2]) * 1e3 for i in range(0, len(probe.batch_wait), 2)]
@@ -1777,19 +1954,23 @@ def phase_stages(device='cuda', bare_ms: float | None = None) -> int:
               f'{sorted(later)[len(later) // 2]:.1f} ms/step')
     print(f'[stages] prototype pass (init_prototypes, 4 batches of 8): {proto_s:.2f} s; '
           f'counts {counts.ravel().astype(int).tolist()}')
-    for stage, t in (('stage 1', s1.trainer), ('stage 2', s2.trainer)):
+    for stage, t in (('stage 1', s1.trainer), ('stage 2', s2.trainer), ('stage 3', s3.trainer)):
         evals = ', '.join(f'{x:.3f} s ({x / 8 * 1e3:.1f} ms/tile)' for x in t.eval_seconds)
         ck = t.ckpt_seconds
         print(f'[stages] {stage}: val eval (8 tiles, slide) {evals}; checkpoint chain: host '
               f'copy {ck["snapshot"]:.3f} s, writes {ck["chain"]:.3f} s in the background, '
               f'join_saver wait {ck["join_wait"]:.3f} s; best mIoU {t.mIoU_max}')
-    test_s = probe_eval.eval_s[0]
-    print(f'[stages] eval CLI on the test split (8 tiles, slide): evaluate {test_s:.3f} s '
-          f'({test_s / 8 * 1e3:.1f} ms/tile, with the checkpoint load and the BN folding), '
-          f'the CLI {eval_cli_s:.2f} s with the model build; mIoU {miou}')
+    for stage, probe, cli_s, m in (('stage 2', probe_eval, eval_cli_s, miou),
+                                   ('stage 3', probe_eval3, eval3_cli_s, miou3)):
+        test_s = probe.eval_s[0]
+        print(f'[stages] eval CLI on the {stage} test split (8 tiles, slide): evaluate '
+              f'{test_s:.3f} s ({test_s / 8 * 1e3:.1f} ms/tile, with the checkpoint load and '
+              f'the BN folding), the CLI {cli_s:.2f} s with the model build; mIoU {m}')
     print(f'[stages] peak GiB: stage 1 {s1_peak:.2f}, prototypes {proto_peak:.2f}, '
-          f'stage 2 {s2_peak:.2f}, eval {eval_peak:.2f}; segment_hist launches in the '
-          f'stage-2 run {launches} ({STAGE_STEPS} steps)')
+          f'stage 2 {s2_peak:.2f}, eval {eval_peak:.2f}, stage 3 {s3_peak:.2f} (generation '
+          f'included), eval {eval3_peak:.2f}; segment_hist launches in the stage-2 run '
+          f'{launches["stage2"]}, in the stage-3 run {launches["stage3"]} ({STAGE_STEPS} steps '
+          f'each)')
     return launches
 
 
@@ -2252,8 +2433,8 @@ def main(argv=None) -> int:
 
     sh.launches = 0
     phase_serve(device)
-    bare_ms = phase_train(device)
-    record['launches'] = sh.launches
+    bare = phase_train(device)   # zeroes the count again before its stage-3 steps
+    record['launches'] = bare['stage2_launches']
     if record['launches'] < 3:
         raise AssertionError(f'segment_hist launched {record["launches"]} times '
                              f'in 3 stage-2 steps; LRH did not go through the kernel')
@@ -2286,8 +2467,11 @@ def main(argv=None) -> int:
         rec['launches_regions'] = counts[key]
     torch.cuda.empty_cache()
 
-    # zeroes the histogram's count just before its stage-2 CLI run
-    record['launches_stages'] = phase_stages(device, bare_ms)
+    # zeroes the histogram's count just before its stage-2 and stage-3 CLI runs
+    stages = phase_stages(device, bare)
+    record['launches_stages'] = stages['stage2']
+    record['launches_stage3'] = stages['stage3']
+    record['launches_stage3_bare'] = bare['stage3_launches']
 
     # one record per pallas_call: the blocked entry replaces both blocked TPU
     # kernels, so its record stands for each

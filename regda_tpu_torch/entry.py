@@ -9,7 +9,9 @@ statistics too, in the `SegInferencer` that evaluation and single-image
 prediction go through (BN folding and the fused dual-PPM forward on).
 `stage2_steps(n)` builds a stage-2 train state and runs `n` steps
 of `train/steps.py:make_stage2_step` on seeded synthetic batches, with LRH
-over ragged region maps, the path whose histogram is a CUDA kernel.
+over ragged region maps, the path whose histogram is a CUDA kernel;
+`stage3_steps(n)` does the same for `make_stage3_step`, on seeded soft
+pseudo-labels.
 `sam_entry()` builds SAM with seeded random weights and example crops and
 point prompts; its encoder runs the LayerNorm and attention CUDA kernels and
 its fast decode (`Sam.decode_points_fast`) the two-way and mask-head ones.
@@ -35,7 +37,7 @@ from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.models.resnet import BatchNorm2d
 from regda_tpu_torch.models.sam.auto import Sam, SamRegionGenerator, build_point_grid
 from regda_tpu_torch.train import create_train_state, make_optimizer
-from regda_tpu_torch.train.steps import make_stage2_step
+from regda_tpu_torch.train.steps import make_stage2_step, make_stage3_step
 
 
 def _device(device) -> torch.device:
@@ -151,6 +153,51 @@ def stage2_steps(n: int, device='cuda'):
                                                for a in batch_np)
         t0 = time.perf_counter()
         metrics.append(step(state, images_s, label_s, images_t, regs_t))
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+    return state, metrics, seconds
+
+
+def synthetic_soft_labels(rng: np.random.Generator, batch: int, size: int,
+                          num_classes: int = 6, scale: float = 4.0) -> np.ndarray:
+    """Stand-in for a batch of offline pseudo-label probabilities: the
+    softmax over classes of seeded normal logits times `scale`, float32
+    (batch, size, size, num_classes); at 4.0 about half the pixels are
+    confident enough for the UVEM threshold."""
+    logits = scale * rng.standard_normal((batch, size, size, num_classes), np.float32)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+
+def stage3_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0,
+                 **step_kwargs):
+    """A stage-3 train state as `stage2_state` builds one, and the stage-3
+    step (refine_label and sam_refine on, lt='uvem'; `step_kwargs`
+    override)."""
+    state, _ = stage2_state(device, resnet=resnet, seed=seed)
+    kwargs = dict(num_classes=6, refine_label=True, sam_refine=True, lt='uvem')
+    kwargs.update(step_kwargs)
+    return state, make_stage3_step(**kwargs)
+
+
+def stage3_steps(n: int, device='cuda'):
+    """Run `n` f32 stage-3 steps of ResNet-101 (see `stage3_state`) at the
+    recipe's shape, 8 crops of 512^2 per domain, on seeded synthetic
+    batches: `synthetic_stage2_batch`'s images, labels and region maps (ids
+    0..MAX_REGION_ID) and `synthetic_soft_labels`. Returns (state, metrics
+    per step, seconds per step); each step's time ends in a synchronize."""
+    device = _device(device)
+    state, step = stage3_state(device)
+    rng = np.random.default_rng(1)
+    metrics, seconds = [], []
+    for _ in range(n):
+        images_s, label_s, images_t, regs_t = synthetic_stage2_batch(rng, 8, 512)
+        soft = synthetic_soft_labels(rng, 8, 512)
+        batch = [torch.from_numpy(a).to(device)
+                 for a in (images_s, label_s, images_t, soft, regs_t)]
+        t0 = time.perf_counter()
+        metrics.append(step(state, *batch))
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         seconds.append(time.perf_counter() - t0)

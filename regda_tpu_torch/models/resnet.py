@@ -66,7 +66,15 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if x.numel() == x.shape[1]:
+            # one value per channel (a pooled PPM branch at batch 1):
+            # F.batch_norm refuses it, Flax normalizes it to zero, so the
+            # output is the bias, as the formula below gives
+            centred = x - x.mean(dim=(0, 2, 3), keepdim=True)
+            y = (centred * self.eps ** -0.5 * self.weight.view(-1, 1, 1)
+                 + self.bias.view(-1, 1, 1))
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)

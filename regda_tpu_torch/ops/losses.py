@@ -1,9 +1,15 @@
-"""Losses the stage-1 and stage-2 steps use, and the class-balance EMA.
+"""The loss zoo of the three stages and the class-balance EMA.
 
-Counterpart of part of regda_tpu/ops/losses.py (reference: regda/gast/
-balance.py:15-133, regda/loss.py:10-47, regda/gast/coral.py:15-47). Logits
-are channel-last (B, H, W, C) or flat (N, C). Focal, GHM, UVEM and UPS are
-not ported yet.
+Counterpart of regda_tpu/ops/losses.py (reference: regda/gast/balance.py
+:15-457, regda/loss.py:10-47, regda/gast/coral.py:15-47, regda/gast/mmd.py
+:15-58). Logits are channel-last (B, H, W, C) or flat (N, C). Losses that
+carry state across steps (the class-frequency EMA, the GHM histogram) take
+it and return the updated one.
+
+UPS and UVEM keep the reference's entropy of the soft label, -p log(p + 0):
+a probability of exactly 0 gives a NaN entropy, which is neither above nor
+at-or-below the threshold, so such a pixel keeps its loss in the sum but
+leaves the count that divides it. The port reproduces that.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from regda_tpu_torch.ops.labels import one_hot_ignore
+from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 EPS = 1e-7
 
@@ -86,6 +93,112 @@ def ohem_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return kept.sum() / (keep.sum() + EPS)
 
 
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
+               ignore_label: int = -1) -> torch.Tensor:
+    """balance.py:136-158: mean over all pixels of (1 - p_y)^gamma * CE,
+    ignored pixels counting 0."""
+    nll, _ = softmax_cross_entropy_ignore(logits, labels, ignore_label)
+    pt = torch.exp(-nll)
+    return ((1.0 - pt) ** gamma * nll).mean()
+
+
+@dataclass
+class GHMState:
+    """30-bin gradient-density histogram EMA (balance.py:161-215)."""
+    acc_sum: torch.Tensor  # (bins,)
+
+    @staticmethod
+    def create(bins: int = 30, device=None) -> 'GHMState':
+        return GHMState(torch.zeros((bins,), dtype=torch.float32, device=device))
+
+
+def ghm_loss(state: GHMState, logits: torch.Tensor, labels: torch.Tensor,
+             bins: int = 30, momentum: float = 0.99, ignore_label: int = -1):
+    """Gradient-harmonized CE (balance.py:161-215) -> (loss, new state).
+
+    The histogram counts g = |p_y - 1| of the valid pixels by `histc`'s
+    binning (int(g * bins), g = 1 in the last bin); the weight of a pixel
+    is 1 / acc of the bin that `bucketize` over the edges k / bins names
+    (the first edge >= g), as the JAX package computes them, so the two
+    binnings may name different bins at g = k / bins, and an empty bin
+    gives an infinite weight. g = 0 and ignored pixels weigh 0."""
+    lg = logits.reshape(-1, logits.shape[-1])
+    lb = labels.reshape(-1)
+    valid = lb != ignore_label
+    with torch.no_grad():
+        probs = torch.softmax(lg, dim=-1)
+        onehot = one_hot_ignore(lb, lg.shape[-1], ignore_label)
+        gradient = torch.abs((probs * onehot).sum(dim=-1) - 1.0)
+        gradient = torch.where(valid, gradient, -1.0)   # below every bin
+        edges = torch.cat([
+            torch.arange(bins, dtype=torch.float32, device=lg.device) / bins,
+            torch.tensor([1.0 + 1e-3], dtype=torch.float32, device=lg.device)])
+        in_range = (gradient >= 0.0) & (gradient <= 1.0)
+        idx = torch.clamp((gradient * bins).to(torch.int32), 0, bins - 1).long()
+        hist = torch.zeros(bins, dtype=torch.float32, device=lg.device).scatter_add_(
+            0, idx, in_range.float())
+        inds = torch.bucketize(gradient, edges, right=False)
+        acc = momentum * state.acc_sum + (1.0 - momentum) * hist if momentum > 0 else hist
+        w = torch.where((inds > 0) & (inds <= bins),
+                        1.0 / acc[torch.clamp(inds - 1, 0, bins - 1)], 0.0)
+    nll, _ = softmax_cross_entropy_ignore(logits, labels, ignore_label)
+    loss = (nll * w).sum() / (valid.sum() + EPS)
+    return loss, GHMState(acc)
+
+
+def _soft_entropy(label_soft_flat: torch.Tensor) -> torch.Tensor:
+    # + 0.0, as the reference: p = 0 gives 0 * -inf = NaN (module docstring)
+    return torch.sum(-label_soft_flat * torch.log(label_soft_flat + 0.0), dim=-1)
+
+
+def ups_loss(logits: torch.Tensor, labels: torch.Tensor, label_soft: torch.Tensor,
+             threshold: float = 0.7, ignore_label: int = -1,
+             pixel_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Entropy-gated CE (balance.py:306-342); label_soft (B, H, W, C)
+    probabilities."""
+    nll, valid = softmax_cross_entropy_ignore(logits, labels, ignore_label)
+    unc = _soft_entropy(label_soft.reshape(-1, label_soft.shape[-1]))
+    nll = torch.where(unc > threshold, 0.0, nll)
+    if pixel_weight is not None:
+        nll = nll * pixel_weight
+    valid_cnt = ((unc <= threshold) & valid).sum()
+    return nll.sum() / (valid_cnt + EPS)
+
+
+def uvem_weight(uncertainty: torch.Tensor, m: float = 0.2, threshold: float = 0.7,
+                gamma: float = 4.0) -> torch.Tensor:
+    """Piecewise-quadratic valuable-example weight (balance.py:396-423)."""
+    u = uncertainty
+    if m > 0:
+        left = torch.clamp((-1.0 / m ** 2) * (u - m) ** 2 + 1.0, 0.0, 1.0) ** (1.0 / gamma)
+    else:
+        left = torch.ones_like(u)
+    if m < threshold:
+        # outside (m, t] the reference evaluates the parabola at u = 0
+        u_right = torch.where((u > m) & (u <= threshold), u, 0.0)
+        right = torch.clamp((-1.0 / (threshold - m) ** 2) * (u_right - m) ** 2 + 1.0,
+                            0.0, 1.0) ** (1.0 / gamma)
+    else:
+        right = torch.zeros_like(u)
+    w = torch.where(u <= m, left, right)
+    return torch.where(u >= threshold, 0.0, w)
+
+
+def uvem_loss(logits: torch.Tensor, labels: torch.Tensor, label_soft: torch.Tensor,
+              m: float = 0.2, threshold: float = 0.7, gamma: float = 4.0,
+              ignore_label: int = -1,
+              pixel_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Uncertainty-based valuable example mining (balance.py:345-394)."""
+    nll, valid = softmax_cross_entropy_ignore(logits, labels, ignore_label)
+    unc = _soft_entropy(label_soft.reshape(-1, label_soft.shape[-1]))
+    nll = torch.where(unc > threshold, 0.0, nll)
+    w = uvem_weight(unc, m, threshold, gamma)
+    if pixel_weight is not None:
+        w = w * pixel_weight
+    valid_cnt = ((unc <= threshold) & valid).sum()
+    return (w * nll).sum() / (valid_cnt + EPS)
+
+
 def prototype_contrastive_loss(prototypes: torch.Tensor, feat: torch.Tensor,
                                labels: torch.Tensor, temperature: float = 8.0,
                                ignore_label: int = -1) -> torch.Tensor:
@@ -116,3 +229,22 @@ def coral_loss(source: torch.Tensor, target: torch.Tensor,
     if is_sqrt:
         loss = torch.sqrt(loss)
     return loss / (4.0 * d * d)
+
+
+def mmd_loss(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Linear-kernel MMD (regda/gast/mmd.py:15-58, kernel_type='linear')."""
+    delta = source.mean(dim=0) - target.mean(dim=0)
+    return torch.dot(delta, delta)
+
+
+def multi_head_loss(preds, labels: torch.Tensor, loss_fn, **kw) -> torch.Tensor:
+    """loss_calc (utils/tools.py:240-260): each head resized to the labels'
+    resolution (bilinear, align_corners) where it differs, the per-head
+    losses averaged."""
+    hw = tuple(labels.shape[-2:])
+    total = 0.0
+    for p in preds:
+        if tuple(p.shape[1:3]) != hw:
+            p = resize_bilinear_align_corners(p, hw)
+        total = total + loss_fn(p, labels, **kw)
+    return total / len(preds)

@@ -29,7 +29,7 @@ import torch
 
 from regda_tpu_torch.datasets import get_meta
 from regda_tpu_torch.infer import SegInferencer
-from regda_tpu_torch.ops.losses import ClassBalanceState
+from regda_tpu_torch.ops.losses import ClassBalanceState, GHMState
 from regda_tpu_torch.train.state import TrainState
 from regda_tpu_torch.utils.checkpoint import load_state_dict, save_state_dict, to_host
 from regda_tpu_torch.utils.convert import load_segmenter_state_dict
@@ -107,8 +107,8 @@ class Trainer:
 
     def host_state(self) -> dict:
         """The full train state (model, optimizer with its momentum buffers
-        and count, prototypes, class-balance EMAs, dropout generator, step)
-        copied to host memory."""
+        and count, prototypes, class-balance EMAs, GHM histogram, dropout
+        generator, step) copied to host memory."""
         st = self.state
         return {'model': to_host(st.model.state_dict()),
                 'optimizer': to_host(st.optimizer.state_dict()),
@@ -116,6 +116,7 @@ class Trainer:
                 'prototypes': to_host(st.prototypes),
                 'class_freq_s': to_host(st.class_freq_s.freq),
                 'class_freq_t': to_host(st.class_freq_t.freq),
+                'ghm': to_host(st.ghm.acc_sum),
                 'generator': st.generator.get_state(),
                 'step': st.step}
 
@@ -147,6 +148,7 @@ class Trainer:
         st.prototypes = saved['prototypes'].to(st.prototypes.device)
         st.class_freq_s = ClassBalanceState(saved['class_freq_s'].to(self.device))
         st.class_freq_t = ClassBalanceState(saved['class_freq_t'].to(self.device))
+        st.ghm = GHMState(saved['ghm'].to(self.device))
         st.generator.set_state(saved['generator'])
         st.step = int(saved['step'])
         meta_path = self._state_path + '.json'

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from regda_tpu_torch.models.deeplabv2 import DeeplabV2
-from regda_tpu_torch.ops.losses import ClassBalanceState
+from regda_tpu_torch.ops.losses import ClassBalanceState, GHMState
 from regda_tpu_torch.ops.schedule import poly_warmup_lr
 
 
@@ -62,6 +62,7 @@ class TrainState:
     prototypes: torch.Tensor          # (C, K)
     class_freq_s: ClassBalanceState
     class_freq_t: ClassBalanceState
+    ghm: GHMState                     # stage 3's GHM target loss
     generator: torch.Generator        # head dropout
     step: int = 0
 
@@ -82,4 +83,5 @@ def create_train_state(model: DeeplabV2, optimizer: PolySGD,
         prototypes=prototypes.to(device=device, dtype=torch.float32),
         class_freq_s=ClassBalanceState.create(num_classes, device),
         class_freq_t=ClassBalanceState.create(num_classes, device),
+        ghm=GHMState.create(device=device),
         generator=generator)

@@ -1,14 +1,17 @@
-"""The stage-1, prototype-init and stage-2 steps (counterparts of
-regda_tpu/train/steps.py:make_stage1_step, make_proto_accum_step and
-make_stage2_step).
+"""The stage-1, prototype-init, stage-2 and stage-3 steps (counterparts of
+regda_tpu/train/steps.py:make_stage1_step, make_proto_accum_step,
+make_stage2_step and make_stage3_step).
 
 References: tools/train_src.py:108-141 (stage 1), tools/init_prototypes.py
-:101-112 (prototype init), tools/train_align_reg.py:144-196 (stage 2). Same
-flags, defaults and order as the JAX steps. Stage 2: source forward ->
-prototype EMA -> target forward -> soft labels -> refine -> selection -> LRH
--> downscale -> losses -> clip -> SGD. The pseudo-label branch carries no
-gradient (the JAX package's stop_gradient), so it runs under
-`torch.no_grad()`; LRH has no backward, and autograd carries the rest.
+:101-112 (prototype init), tools/train_align_reg.py:144-196 (stage 2),
+tools/train_ssl_reg.py:198-241 (stage 3). Same flags, defaults and order as
+the JAX steps. Stage 2: source forward -> prototype EMA -> target forward ->
+soft labels -> refine -> selection -> LRH -> downscale -> losses -> clip ->
+SGD. Stage 3: both forwards -> refine of the loaded soft labels by the
+prototypes from before this step -> selection -> LRH -> prototype EMA ->
+losses at the labels' full resolution -> clip -> SGD. The pseudo-label
+branch carries no gradient (the JAX package's stop_gradient), so it runs
+under `torch.no_grad()`; LRH has no backward, and autograd carries the rest.
 
 A train step updates the state in place (model, optimizer, prototypes,
 class balance, step count) and returns detached 0-dim loss tensors.
@@ -173,5 +176,95 @@ def make_stage2_step(*, align_domain: bool = True,
         return {'total': loss.detach(), 'loss_seg': loss_seg.detach(),
                 'loss_align': loss_align.detach(),
                 'loss_domain': loss_domain.detach()}
+
+    return step
+
+
+def make_stage3_step(*, refine_label: bool = True, refine_mode: str = 'all',
+                     refine_temp: float = 2.0, sam_refine: bool = True,
+                     percent: float = 0.5, ls: str = 'CrossEntropy',
+                     lt: str = 'uvem', bcs: bool = False, bct: bool = False,
+                     class_temp: float = 2.0, uvem_m: float = 0.2,
+                     uvem_t: float = 0.7, uvem_g: float = 4.0,
+                     proto_decay: float = 0.996, num_classes: int = 6,
+                     ignore_label: int = -1, cutoff_top: float = 0.8,
+                     cutoff_low: float = 0.6) -> Callable:
+    """Returns step(state, images_s, label_s, images_t, label_t_prob,
+    regs_t) -> metrics (`total`, `loss_source`, `loss_target`), where
+    label_t_prob (B, H, W, C) are the offline pseudo-label probabilities.
+
+    The target loss (`lt`: 'uvem'/'ours', 'ups', 'ohem', 'focal', 'ghm',
+    else CE) runs on each head resized to the hard labels' resolution and
+    averages the two; with `bct` (and an `lt` that takes weights, or
+    'ohem', which moves the EMA but ignores them) the target class-balance
+    EMA updates once per head, and the GHM histogram threads through both
+    heads (balance.py:437-457)."""
+    src_loss = _source_loss(ls, bcs, num_classes, class_temp, ignore_label)
+    targets = ('ours', 'uvem', 'ups', 'ohem', 'focal', 'ghm', 'none', 'ce')
+    if lt not in targets:
+        raise ValueError(f'target loss {lt!r}: expected one of {targets}')
+
+    def target_loss(preds, label_hard, label_soft, cb_state, ghm):
+        hw = tuple(label_hard.shape[-2:])
+        total = 0.0
+        for p in preds:
+            p = resize_bilinear_align_corners(p, hw)
+            w = None
+            if bct and lt in ('ours', 'uvem', 'ups', 'ohem', 'none', 'ce'):
+                w, cb_state = L.class_balance_weights(
+                    cb_state, label_hard, num_classes, ignore_label,
+                    temperature=class_temp)
+            if lt in ('ours', 'uvem'):
+                loss = L.uvem_loss(p, label_hard, label_soft, uvem_m, uvem_t, uvem_g,
+                                   ignore_label, pixel_weight=w)
+            elif lt == 'ups':
+                loss = L.ups_loss(p, label_hard, label_soft, uvem_t, ignore_label,
+                                  pixel_weight=w)
+            elif lt == 'ohem':
+                loss = L.ohem_cross_entropy_loss(p, label_hard, ignore_label)
+            elif lt == 'focal':
+                loss = L.focal_loss(p, label_hard, 2.0, ignore_label)
+            elif lt == 'ghm':
+                loss, ghm = L.ghm_loss(ghm, p, label_hard, ignore_label=ignore_label)
+            else:
+                loss = L.cross_entropy_loss(p, label_hard, ignore_label, pixel_weight=w)
+            total = total + loss
+        return total / len(preds), cb_state, ghm
+
+    def step(state: TrainState, images_s, label_s, images_t, label_t_prob, regs_t):
+        model = state.model
+        model.train()
+        p_s1, p_s2, feat_s = model(images_s, state.generator)
+        p_t1, p_t2, feat_t = model(images_t, state.generator)
+        with torch.no_grad():
+            label_t_soft = label_t_prob
+            if refine_label:
+                # the prototypes from before this step's EMA update
+                label_t_soft = label_refine(
+                    feat_t.detach(), [p_t1.detach(), p_t2.detach()],
+                    label_t_soft, state.prototypes, mode=refine_mode, temp=refine_temp)
+            label_t_hard = pseudo_selection(label_t_soft, cutoff_top, cutoff_low,
+                                            ignore_label)
+            if sam_refine:
+                label_t_hard = homogenize(label_t_hard, regs_t, percent,
+                                          num_classes, ignore_label)
+            label_s_down = downscale_label(label_s, 16, num_classes, ignore_label)
+            oh_s = one_hot_ignore(label_s_down.reshape(-1), num_classes, ignore_label)
+            protos = prototype_update(state.prototypes, _flat(feat_s.detach()),
+                                      oh_s, proto_decay)
+
+        loss_source, cb_s = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
+        loss_target, cb_t, ghm = target_loss([p_t1, p_t2], label_t_hard, label_t_soft,
+                                             state.class_freq_t, state.ghm)
+        loss = loss_source + loss_target
+
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.prototypes = protos
+        state.class_freq_s, state.class_freq_t, state.ghm = cb_s, cb_t, ghm
+        state.step += 1
+        return {'total': loss.detach(), 'loss_source': loss_source.detach(),
+                'loss_target': loss_target.detach()}
 
     return step

@@ -15,6 +15,7 @@ PORT = ROOT / 'regda_tpu_torch'
 
 _FORWARD = r'''
 import sys
+import numpy as np
 import torch
 import regda_tpu_torch.entry, regda_tpu_torch.ops.lrh, regda_tpu_torch.utils.convert
 import regda_tpu_torch.models.sam.convert, regda_tpu_torch.ops.kernels.layernorm
@@ -25,7 +26,8 @@ import regda_tpu_torch.datasets, regda_tpu_torch.native, regda_tpu_torch.train.l
 import regda_tpu_torch.utils.checkpoint, regda_tpu_torch.utils.eval
 import regda_tpu_torch.utils.profiling, regda_tpu_torch.tools.train_src
 import regda_tpu_torch.tools.init_prototypes, regda_tpu_torch.tools.train_align_reg
-import regda_tpu_torch.tools.eval
+import regda_tpu_torch.tools.eval, regda_tpu_torch.pseudo, regda_tpu_torch.tools.train_ssl_reg
+import regda_tpu_torch.tools.lrh_mechanism, regda_tpu_torch.tools.run_parity
 from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.ops.lrh import homogenize
 model = build_deeplabv2('resnet18', 6, generator=torch.Generator().manual_seed(0))
@@ -34,12 +36,17 @@ with torch.no_grad():
 assert probs.shape == (1, 32, 32, 6)
 labels = homogenize(torch.zeros(1, 32, 32, dtype=torch.int32),
                     torch.ones(1, 32, 32, dtype=torch.int32))
+state, step = regda_tpu_torch.entry.stage3_state('cpu', resnet='resnet18', lt='ghm')
+rng = np.random.default_rng(0)
+images_s, label_s, images_t, regs = regda_tpu_torch.entry.synthetic_stage2_batch(rng, 2, 32)
+soft = regda_tpu_torch.entry.synthetic_soft_labels(rng, 2, 32)
+metrics = step(state, *(torch.from_numpy(a) for a in (images_s, label_s, images_t, soft, regs)))
+assert state.step == 1 and state.ghm.acc_sum.sum() > 0
 sam, (images, points, pt_labels) = regda_tpu_torch.entry.sam_entry(
     'cpu', vit_config='vit_t', img_size=64, crops=1, points=2)
 with torch.no_grad():
     masks, iou = sam(images, points, pt_labels)
 assert masks.shape == (2, 3, 16, 16) and iou.shape == (2, 3)
-import numpy as np
 gen, tiles = regda_tpu_torch.entry.sam_regions_entry(
     'cpu', vit_config='vit_t', img_size=64, tiles=2, tile=48, dtype=torch.float32,
     points_per_side=2, points_per_batch=4, pred_iou_thresh=-1e9, stability_score_thresh=0.0)

@@ -16,8 +16,9 @@ gives them. Against the JAX package, on the files the chain wrote:
     that agree to ~2e-5 can cancel to near zero).
 The Trainer's full state survives `save_state` -> a fresh `try_resume`
 exactly, and one more step from both gives identical parameters; a failing
-background save re-raises at `join_saver`; without a card, each CLI refuses
-to run unless `--device cpu` is given.
+background save re-raises at `join_saver`; without a card, each CLI (stage
+3's and the LRH-mechanism tool's too) refuses to run unless `--device cpu`
+is given.
 """
 
 import os
@@ -273,6 +274,8 @@ def test_import_config_twice_keeps_one_postfix(chain, monkeypatch):
 _CLI_ARGS = {'train_src': [],
              'init_prototypes': ['--ckpt-model', 'x.pth', '--ckpt-proto', 'p'],
              'train_align_reg': ['--ckpt-model', 'x.pth', '--ckpt-proto', 'p.npy'],
+             'train_ssl_reg': ['--ckpt-model', 'x.pth', '--ckpt-proto', 'p.npy'],
+             'lrh_mechanism': ['--ckpt-model', 'x.pth', '--ckpt-proto', 'p.npy'],
              'eval': ['--ckpt-path', 'x.pth']}
 
 
