@@ -32,7 +32,10 @@ Phases (any failure raises, and the exit code is non-zero):
               device's pace, and its kernel's device time from
               torch.profiler) beside the host's microseconds a call.
      check    small-size agreement of the card with the CPU: the ResNet-101
-              eval forward (f32, rtol/atol 1e-4), a resnet18 `SegInferencer`
+              eval forward (f32, rtol/atol 1e-4), the resnet18 eval forward
+              at output strides 8 and 32 (f32, rtol/atol 1e-4) and a
+              ResNet-101 output-stride-8 eval forward of 2 x 512^2 (shapes,
+              finiteness, ms), a resnet18 `SegInferencer`
               (folded, fused; slide + TTA on a 96x80 image, tile 64, stride
               32; f32, rtol 1e-4, atol 1e-5), one resnet18 stage-2
               step with dropout off (losses rtol 1e-4), `homogenize` at
@@ -72,6 +75,15 @@ Phases (any failure raises, and the exit code is non-zero):
               at the same shape (lt='uvem', refine_label and sam_refine on,
               seeded soft pseudo-labels): every loss finite, exactly one
               histogram launch a step; ms/step (steps 1-2) and peak of each.
+              Then remat (`phase_remat`): `stage2_steps(3, remat=True)` and
+              `stage3_steps(3, remat=True)` from the plain runs' seeds:
+              losses against the plain runs' (step 1 rtol 1e-6, later
+              REMAT_LATER_RTOL), every BN running statistic moved by step 1
+              and within REMAT_BN_ATOL of the plain step 1's, within
+              REMAT_BN_TOL after 3 steps, exactly one histogram launch a
+              step, ms/step and peak beside the plain runs'. (Where the
+              memory goes, with and without remat: `python -m
+              regda_tpu_torch.tools.remat_memory`.)
   4. sam      `sam_entry()`: SAM ViT-B at full width and depth, bf16 compute
               with f32 weights: `encode` of the 5-crop pyramid of one tile
               (5 x 1024^2) then `decode_points` of 64 grid points on crop 0.
@@ -131,16 +143,34 @@ Phases (any failure raises, and the exit code is non-zero):
               1e-3 (read before the CLI removes them) and their directory
               gone at the end, exactly one segment-histogram launch per
               stage-2 and per stage-3 step, both test mIoUs finite in [0, 1].
+              Before stage 3, the classifiers of stage 2's `_best.pth` are
+              multiplied by UVEM_LOGIT_SCALE, so that its pseudo-labels are
+              confident enough for UVEM: every stage-3 step's target loss is
+              above 0. The pseudo maps and the target labels are kept for
+              phase 7.
               Printed on `[stages]` lines: ms/step through the loop (StepTimer
               EMA and mean of steps 2-6) beside phase 3's bare steps, the
               loader's decode path, pseudo generation's seconds and ms a
               tile, the prototype pass, the batch waits of each step, eval
               seconds per split and per tile, the checkpoint chain's seconds,
               each stage's peak memory.
+  7. prep     `phase_prep()`: (a) `get_superpixels` with LSC and with SLIC
+              on the card over PREP_TILES seeded 512^2 tiles, int32 maps, the
+              boundary maps of PREP_CPU_TILES of them against a CPU run
+              (PREP_BOUNDARY_AGREEMENT), ms a tile; (b) `analysis_pseudo_labels`
+              over phase 6's 32 stage-3 pseudo maps, counts equal to a CPU
+              run's, acc and diffi within 1e-5, the share of pixels used; (c)
+              `check_sam_stability --device cuda --vit-config vit_b --tiles 2
+              --auto-thresh --out <tmp>`: the report written, its flip rates
+              and region counts, SAM's kernels launched; (d) `convert_potsdam`
+              on a synthetic 6000^2 RGBIR scene and `convert_vaihingen` on a
+              2000 x 2500 IRRG one: the tile count `tile_boxes` gives, three
+              tiles decoded by PIL equal to their crops.
 Launch counts are zeroed just before phases 2-3, again just before phase
-3's stage-3 steps, just before the encode of phase 4, again just before its
-fast decode, again just before phase 5's batch call and again just before
-phase 6's stage-2 run and its stage-3 run, and read just after each.
+3's stage-3 steps, just before each remat run, just before the encode of
+phase 4, again just before its fast decode, again just before phase 5's
+batch call, again just before phase 6's stage-2 run and its stage-3 run,
+and just before phase 7's stability check, and read just after each.
 TF32 is off in every phase (`torch.backends.cudnn.allow_tf32` and
 `torch.backends.cuda.matmul.allow_tf32` both False): phases 2,
 4 and 5 compute in bf16, and the others hold float32 as float32, as the JAX
@@ -152,8 +182,10 @@ kernels' JSON record, one for each of the JAX package's nine `pallas_call`s
 (the blocked stability entry stands for both blocked TPU kernels); the
 histogram's record carries its launches in phase 3's stage-2 steps
 (`launches`), in phase 6's stage-2 and stage-3 CLI runs (`launches_stages`,
-`launches_stage3`) and in phase 3's bare stage-3 steps
-(`launches_stage3_bare`). Without a
+`launches_stage3`), in phase 3's bare stage-3 steps
+(`launches_stage3_bare`) and in its remat steps (`launches_stage2_remat`,
+`launches_stage3_remat`); the SAM kernels' records carry their launches in
+phase 7's stability check (`launches_stability_check`). Without a
 CUDA device the script exits non-zero at once and prints no result.
 
     python3 chip_smoke.py --parent DIR
@@ -1218,6 +1250,7 @@ def phase_check(device):
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
         raise AssertionError(f'eval forward card vs CPU: max abs err {err}')
     print(f'[check] ResNet-101 eval forward 2x64^2 f32, card vs CPU: max abs err {err:.3g}')
+    check_output_strides(device)
 
     # the serve path: SegInferencer (folded, fused) on the card vs the CPU
     import copy
@@ -1322,6 +1355,43 @@ def phase_check(device):
                             **SAM_CHECK_TOL)
         print(f'[check] vit_t decode_points_fast vs decode_points on the card, f32 {name}: '
               f'max abs err {err:.3g}')
+
+
+def check_output_strides(device) -> None:
+    """The eval forward at output strides 8 and 32: resnet18 on the card
+    against the CPU (2x64^2, f32, rtol/atol 1e-4), then ResNet-101 at
+    output stride 8 on 2x512^2 (shape, finiteness, ms)."""
+    import torch
+    from regda_tpu_torch.models import build_deeplabv2
+
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(11))
+    for output_stride in (8, 32):
+        model = build_deeplabv2('resnet18', 6, output_stride=output_stride,
+                                generator=torch.Generator().manual_seed(12)).eval()
+        with torch.inference_mode():
+            want = model(x)
+            got = model.to(device)(x.to(device)).cpu()
+        err = _assert_close(f'resnet18 OS {output_stride} eval forward card vs CPU', got, want,
+                            rtol=1e-4, atol=1e-4)
+        print(f'[check] resnet18 eval forward at output stride {output_stride}, 2x64^2 f32, '
+              f'card vs CPU: max abs err {err:.3g}')
+    model = build_deeplabv2('ResNet101', 6, output_stride=8,
+                            generator=torch.Generator().manual_seed(13))
+    model = model.to(device, memory_format=torch.channels_last).eval()
+    x = torch.randn(2, 512, 512, 3, generator=torch.Generator().manual_seed(14)).to(device)
+    with torch.inference_mode():
+        probs = model(x)
+        feat = model.features(x)
+        ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+    if probs.shape != (2, 512, 512, 6) or feat.shape[-2:] != (64, 64):
+        raise AssertionError(f'ResNet-101 OS 8: probs {tuple(probs.shape)}, '
+                             f'features {tuple(feat.shape)}')
+    if not torch.isfinite(probs).all():
+        raise AssertionError('ResNet-101 OS 8 eval forward: non-finite probabilities')
+    print(f'[check] ResNet-101 eval forward at output stride 8, 2x512^2 f32 (features '
+          f'{tuple(feat.shape)}): {ms:.2f} ms a call')
+    del model, x, probs, feat
+    torch.cuda.empty_cache()
 
 
 def check_stage1(device) -> None:
@@ -1663,12 +1733,29 @@ def phase_serve(device) -> None:
           f'{ms:.3f} ms per call (CUDA events)')
 
 
+def _bn_stats(model) -> dict:
+    """Copies of every BatchNorm running statistic of `model`, by name."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if 'running' in k}
+
+
+def _first_bn_stats(into: dict):
+    """An `after_step` for `stage{2,3}_steps` that fills `into` with the
+    running statistics after step 1."""
+    def after_step(i, state):
+        if i == 0:
+            into.update(_bn_stats(state.model))
+    return after_step
+
+
 def phase_train(device) -> dict:
     """The bare stage-2 step, `stage2_steps(3)`, then the bare stage-3 step,
     `stage3_steps(3)` (lt='uvem', refine and LRH on, seeded soft labels),
     each with its peak memory; the histogram's count is zeroed before the
     stage-3 run. -> {'stage2_ms', 'stage3_ms' (steps 1-2), 'stage2_launches'
-    (since the caller zeroed the count), 'stage3_launches'}."""
+    (since the caller zeroed the count), 'stage3_launches', and per stage
+    'stage{n}_metrics' (floats a step), 'stage{n}_peak' (GiB),
+    'stage{n}_bn1' and 'stage{n}_bn' (the running statistics after step 1
+    and after the 3 steps)}."""
     import torch
     from regda_tpu_torch.entry import stage2_steps, stage3_steps
     from regda_tpu_torch.ops.kernels import segment_hist as sh
@@ -1680,21 +1767,24 @@ def phase_train(device) -> dict:
             sh.launches = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        state, metrics, seconds = run(3, device)
-        for i, m in enumerate(metrics):
-            vals = {k: float(v) for k, v in m.items()}
+        bn1 = {}
+        state, metrics, seconds = run(3, device, after_step=_first_bn_stats(bn1))
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        for i, vals in enumerate(metrics):
             if not all(math.isfinite(v) for v in vals.values()):
                 raise AssertionError(f'stage-{stage} step {i}: non-finite loss {vals}')
             print(f'[train] stage {stage} step {i}: {seconds[i] * 1e3:.1f} ms {vals}')
         if state.step != 3:
             raise AssertionError(f'stage-{stage} step counter {state.step} != 3')
         ms = sum(seconds[1:]) / 2 * 1e3
-        out[f'stage{stage}_ms'] = ms
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out.update({f'stage{stage}_ms': ms, f'stage{stage}_metrics': metrics,
+                    f'stage{stage}_peak': peak, f'stage{stage}_bn1': bn1,
+                    f'stage{stage}_bn': _bn_stats(state.model)})
         extra = (f'; segment_hist launches {sh.launches} in 3 steps'
                  if stage == 3 else '')
         print(f'[train] ResNet-101 stage-{stage} f32 2x8x512^2: '
-              f'{ms:.1f} ms/step (steps 1-2), '
-              f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{extra}')
+              f'{ms:.1f} ms/step (steps 1-2), peak {peak:.2f} GiB{extra}')
         del state
     out['stage3_launches'] = sh.launches
     if out['stage3_launches'] != 3:
@@ -1702,6 +1792,83 @@ def phase_train(device) -> dict:
                              f'stage-3 steps; expected one a step')
     train_split(device)
     return out
+
+
+# Remat against the plain step, phase 3: step 1's losses, and the running
+# statistics after step 1, are the same forward's from the same seeded state,
+# so they are held to float32 identity; later steps start from parameters
+# that the backward's unordered atomic adds (bilinear upsample, cuDNN weight
+# gradients) leave a few ulps apart in each run, so their losses are held to
+# REMAT_LATER_RTOL and the running statistics after 3 steps to REMAT_BN_TOL.
+REMAT_BN_ATOL = 1e-6
+REMAT_LATER_RTOL = 1e-5
+REMAT_BN_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def phase_remat(device, bare: dict) -> dict:
+    """Phase 3, remat: `stage2_steps(3, remat=True)` and
+    `stage3_steps(3, remat=True)` at full width (ResNet-101, 2x8x512^2, f32,
+    TF32 off, the seeds of phase 3's plain runs in `bare`). Losses against
+    the plain run's (step 1 rtol 1e-6, later steps REMAT_LATER_RTOL); every
+    running statistic moved from its initial value by step 1 (moved once a
+    step: the recompute in the backward leaves it alone) and within
+    REMAT_BN_ATOL of the plain step 1's, within REMAT_BN_TOL after 3 steps;
+    exactly one histogram launch a step (the count zeroed just before each
+    run); ms/step and peak beside the plain run's. -> {'stage2': launches,
+    'stage3': launches}."""
+    import torch
+    from regda_tpu_torch.entry import stage2_steps, stage3_steps
+    from regda_tpu_torch.ops.kernels import segment_hist as sh
+
+    launches = {}
+    for stage, run in ((2, stage2_steps), (3, stage3_steps)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sh.launches = 0
+        bn1 = {}
+        state, metrics, seconds = run(3, device, remat=True, after_step=_first_bn_stats(bn1))
+        launches[f'stage{stage}'] = sh.launches
+        if not state.model.remat:
+            raise AssertionError(f'stage{stage}_steps(remat=True) built a model without remat')
+        if sh.launches != 3:
+            raise AssertionError(f'segment_hist launched {sh.launches} times in 3 remat '
+                                 f'stage-{stage} steps; expected one a step')
+        for i, (m, want) in enumerate(zip(metrics, bare[f'stage{stage}_metrics'])):
+            rtol = 1e-6 if i == 0 else REMAT_LATER_RTOL
+            for k, v in want.items():
+                if not math.isclose(float(m[k]), v, rel_tol=rtol, abs_tol=1e-7):
+                    raise AssertionError(f'stage-{stage} remat step {i} {k}: {float(m[k])} '
+                                         f'vs plain {v} (rtol {rtol:g})')
+        want1 = bare[f'stage{stage}_bn1']
+        worst1 = max(float((bn1[k] - want1[k]).abs().max()) for k in want1)
+        if not worst1 <= REMAT_BN_ATOL:
+            raise AssertionError(f'stage-{stage} remat step 1: BN running statistics {worst1} '
+                                 f'from the plain step\'s')
+        still = [k for k, v in bn1.items()
+                 if torch.equal(v, torch.ones_like(v) if k.endswith('running_var')
+                                else torch.zeros_like(v))]
+        if still:
+            raise AssertionError(f'stage-{stage} remat step 1 left {len(still)} running '
+                                 f'statistics at their initial values, e.g. {still[0]}')
+        bn, want = _bn_stats(state.model), bare[f'stage{stage}_bn']
+        worst = max(float((bn[k] - want[k]).abs().max()) for k in want)
+        if not all(torch.allclose(bn[k], want[k], **REMAT_BN_TOL) for k in want):
+            raise AssertionError(f'stage-{stage} remat: BN running statistics after 3 steps '
+                                 f'{worst} from the plain run\'s')
+        ms = sum(seconds[1:]) / 2 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        plain_ms, plain_peak = bare[f'stage{stage}_ms'], bare[f'stage{stage}_peak']
+        print(f'[train] remat ResNet-101 stage-{stage} f32 2x8x512^2: {ms:.1f} ms/step '
+              f'(steps 1-2) against {plain_ms:.1f} without remat ({ms / plain_ms - 1:+.1%}); '
+              f'peak {peak:.2f} GiB against {plain_peak:.2f}; losses '
+              f'{[float(m["total"]) for m in metrics]} '
+              f'equal the plain run\'s (step 1 rtol 1e-6, steps 2-3 rtol {REMAT_LATER_RTOL:g}); '
+              f'{len(bn1)} BN running statistics all moved by step 1, within {worst1:.3g} of '
+              f'the plain step 1\'s (limit {REMAT_BN_ATOL:g}), within {worst:.3g} after 3 '
+              f'steps; segment_hist launches {sh.launches} in 3 steps')
+        del state
+        torch.cuda.empty_cache()
+    return launches
 
 
 def train_split(device) -> None:
@@ -1746,8 +1913,10 @@ class _StageProbe:
     `gener_target_pseudo`'s seconds and what it wrote (read before the CLI
     removes it): file count, shapes, the worst |sum of probabilities - 1|."""
 
-    def __init__(self):
+    def __init__(self, keep: str | None = None):
         self.metrics, self.batch_wait, self.eval_s, self.pseudo = [], [], [], []
+        self.keep = keep   # a directory to copy the pseudo-label maps into
+
 
     def _pseudo(self, gen):
         def probed(cfg, inferencer, loader, path, **kwargs):
@@ -1759,6 +1928,9 @@ class _StageProbe:
             gen(cfg, inferencer, loader, path, **kwargs)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+            if self.keep:
+                import shutil
+                shutil.copytree(path, self.keep)
             shapes, worst = set(), 0.0
             files = sorted(os.listdir(path))
             for f in files:
@@ -1792,12 +1964,13 @@ class _StageProbe:
                                   self._pseudo(train_ssl_reg.gener_target_pseudo)))
 
 
-def _stage_run(name: str, fn, argv):
+def _stage_run(name: str, fn, argv, keep: str | None = None):
     """fn(argv) on the card with the peak memory and seconds around it ->
-    (fn's result, seconds, peak GiB, _StageProbe)."""
+    (fn's result, seconds, peak GiB, _StageProbe); `keep`: where the probe
+    copies the pseudo-label maps that a stage-3 run writes."""
     import contextlib
     import torch
-    probe = _StageProbe()
+    probe = _StageProbe(keep)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1812,14 +1985,41 @@ def _stage_run(name: str, fn, argv):
     return out, seconds, peak, probe
 
 
-def phase_stages(device='cuda', bare: dict | None = None) -> dict:
+# Phase 6 multiplies the classifiers of stage 2's `_best.pth` by this before
+# stage 3 reads it: a few steps from random weights leave every pixel of the
+# pseudo-labels above UVEM's entropy threshold (0.7), and the target loss at
+# 0. A pseudo-label is the mean of 2 heads x 8 TTA views, which a barely
+# trained model does not agree on, so the mean stays soft however sharp each
+# view is: at x16 no pixel passed in a CPU run of this phase cut to resnet18
+# at 64^2; at x1000 each view is one-hot, and the pixels where most views
+# agree pass.
+UVEM_LOGIT_SCALE = 1000.0
+
+
+def sharpen_classifiers(path: str, scale: float) -> None:
+    """Multiply the final 1x1 classifier (`conv_last.4`) of both heads in
+    the checkpoint at `path` by `scale`, in place: every logit times scale."""
+    import torch
+    state = torch.load(path, map_location='cpu', weights_only=True)
+    keys = [k for k in state if '.conv_last.4.' in k]
+    if len(keys) != 4:
+        raise AssertionError(f'{path}: classifier keys {keys}')
+    for k in keys:
+        state[k] = state[k] * scale
+    torch.save(state, path)
+
+
+def phase_stages(device='cuda', bare: dict | None = None, keep: str | None = None) -> dict:
     """Phase 6: the five stage CLIs in this process at full width on
     `configs/st/regda/full_smoke.py`'s synthetic tree (ResNet-101, C = 6,
     512^2 tiles, batch 8 per domain, f32, TF32 off). `bare`: phase 3's
-    bare-step times, printed beside the loop's. Returns the segment
-    histogram's launches in the stage-2 and the stage-3 runs (exactly one a
-    step each), zeroed just before each run: {'stage2': n, 'stage3': n}."""
+    bare-step times, printed beside the loop's. `keep`: a directory that
+    receives stage 3's pseudo-label maps (`keep/pseudo`) and the target
+    tiles' labels (`keep/labels`). Returns the segment histogram's launches
+    in the stage-2 and the stage-3 runs (exactly one a step each), zeroed
+    just before each run: {'stage2': n, 'stage3': n}."""
     import os
+    import shutil
     import tempfile
     import numpy as np
     import torch
@@ -1863,14 +2063,19 @@ def phase_stages(device='cuda', bare: dict | None = None) -> dict:
             (_, miou), eval_cli_s, eval_peak, probe_eval = _stage_run(
                 'eval --test 1 (stage 2)', eval_cli.main,
                 [*common, '--ckpt-path', f'{align}/Vaihingen_best.pth', '--test', '1'])
+            sharpen_classifiers(f'{align}/Vaihingen_best.pth', UVEM_LOGIT_SCALE)
             sh.launches = 0
             s3, s3_s, s3_peak, probe3 = _stage_run(
                 'stage 3 (train_ssl_reg --gen 1 --refine-label 1 --sam-refine --lt uvem)',
                 train_ssl_reg.main,
                 [*common, '--ckpt-model', f'{align}/Vaihingen_best.pth',
                  '--ckpt-proto', f'{align}/prototypes_best.npy', '--gen', '1',
-                 '--refine-label', '1', '--sam-refine', '--percent', '0.5', '--lt', 'uvem'])
+                 '--refine-label', '1', '--sam-refine', '--percent', '0.5', '--lt', 'uvem'],
+                keep=keep and os.path.join(keep, 'pseudo'))
             launches['stage3'] = sh.launches
+            if keep:
+                shutil.copytree(os.path.join(root, 'Vaihingen', 'ann_dir', 'train'),
+                                os.path.join(keep, 'labels'))
             (_, miou3), eval3_cli_s, eval3_peak, probe_eval3 = _stage_run(
                 'eval --test 1 (stage 3)', eval_cli.main,
                 [*common, '--ckpt-path', f'{ssl}/Vaihingen_best.pth', '--test', '1'])
@@ -1884,6 +2089,11 @@ def phase_stages(device='cuda', bare: dict | None = None) -> dict:
                     if not all(math.isfinite(v) for v in vals.values()):
                         raise AssertionError(f'{stage} step {i}: non-finite loss {vals}')
                 print(f'[stages] {stage} last step losses {vals}')
+            targets = [float(m['loss_target']) for m in probe3.metrics]
+            if not all(t > 0 for t in targets):
+                raise AssertionError(f'stage 3 target losses {targets}: UVEM used no pixel')
+            print(f'[stages] stage 3 target (UVEM) losses {targets}, on pseudo-labels from '
+                  f'stage 2\'s checkpoint with its classifiers x{UVEM_LOGIT_SCALE:g}')
             for d in (src, align, ssl):
                 names = ['Vaihingen_curr.pth', 'Vaihingen_best.pth', 'Vaihingen_state.pth',
                          'Vaihingen_state.pth.json']
@@ -2386,6 +2596,192 @@ def phase_regions(device, **entry_kwargs) -> dict:
     return counts
 
 
+# phase 7 (a): the least share of pixels whose superpixel boundary map (is
+# the pixel's right or lower neighbour in another superpixel) agrees
+# between the card and the CPU. A float centre sum added in another order
+# can move a pixel almost tied between two centres; a boundary map does not
+# depend on the ids' numbering, which connectivity renumbers after a change.
+PREP_BOUNDARY_AGREEMENT = 0.99
+PREP_TILES = 8
+PREP_CPU_TILES = 2
+
+
+def _prep_tiles(rng, n: int, size: int = 512):
+    """Seeded uint8 tiles with regions: a 16x16 grid of palette colours
+    upsampled to the tile, plus pixel noise (std 12)."""
+    import numpy as np
+    palette = rng.integers(30, 225, size=(6, 3))
+    tiles = []
+    for _ in range(n):
+        grid = palette[rng.integers(0, 6, size=(16, 16))]
+        img = np.kron(grid, np.ones((size // 16, size // 16, 1))) + rng.normal(
+            0, 12, (size, size, 3))
+        tiles.append(np.clip(img, 0, 255).astype(np.uint8))
+    return tiles
+
+
+def _boundaries(labels):
+    import numpy as np
+    edge = np.zeros(labels.shape, bool)
+    edge[:, :-1] |= labels[:, 1:] != labels[:, :-1]
+    edge[:-1, :] |= labels[1:, :] != labels[:-1, :]
+    return edge
+
+
+def phase_prep(device, kept: str) -> dict:
+    """Phase 7: the data-prep chain and the evidence CLIs on the card.
+    (a) `get_superpixels` (LSC, then SLIC) over PREP_TILES seeded 512^2
+    tiles: int32 maps, their boundary maps against a CPU run of
+    PREP_CPU_TILES tiles (PREP_BOUNDARY_AGREEMENT; SLIC's ids too, which
+    keep the grid's numbering, where LSC's connectivity pass numbers its
+    segments in scan order, so one moved pixel renumbers those after it),
+    ms a tile. (b) `analysis_pseudo_labels` over phase 6's 32 stage-3 pseudo maps
+    (`kept`): cnt_used and cnt_true equal a CPU run's, acc and diffi within
+    1e-5; the share of pixels used. (c) `check_sam_stability --device cuda
+    --vit-config vit_b --tiles 2 --auto-thresh --out <tmp>` with the launch
+    counts zeroed just before and read just after (-> the returned dict);
+    its report written, flip rate and region counts printed. (d)
+    `convert_potsdam` on a 6000^2 RGBIR scene and `convert_vaihingen` on a
+    2000x2500 IRRG scene, both synthetic: as many tiles as `tile_boxes`
+    gives, names and PIL-decoded tiles equal to the scene's crops."""
+    import json
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from regda_tpu_torch.analysis import analysis_pseudo_labels
+    from regda_tpu_torch.data_prep.superpixels import get_superpixels
+    from regda_tpu_torch.data_prep.tiling import tile_boxes
+    from regda_tpu_torch.ops.kernels import layernorm as ln
+    from regda_tpu_torch.ops.kernels import mask_stats as ms_
+    from regda_tpu_torch.ops.kernels import rel_attention as ra
+    from regda_tpu_torch.ops.kernels import stability as st
+    from regda_tpu_torch.ops.kernels import two_way as tw
+    from regda_tpu_torch.ops.kernels import upscale as up
+    from regda_tpu_torch.tools import check_sam_stability, convert_potsdam, convert_vaihingen
+
+    with tempfile.TemporaryDirectory(prefix='regda_prep_') as tmp:
+        # (a) superpixels
+        img_dir, cpu_dir = os.path.join(tmp, 'img'), os.path.join(tmp, 'img_cpu')
+        os.makedirs(img_dir)
+        os.makedirs(cpu_dir)
+        for i, tile in enumerate(_prep_tiles(np.random.default_rng(21), PREP_TILES)):
+            Image.fromarray(tile).save(os.path.join(img_dir, f't{i}.png'))
+            if i < PREP_CPU_TILES:
+                Image.fromarray(tile).save(os.path.join(cpu_dir, f't{i}.png'))
+        for method in ('lsc', 'slic'):
+            out, out_cpu = os.path.join(tmp, f'sup_{method}'), os.path.join(tmp, f'cpu_{method}')
+            get_superpixels(img_dir, out, method=method, device=device)   # first use
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = get_superpixels(img_dir, out, method=method, device=device)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            get_superpixels(cpu_dir, out_cpu, method=method, device='cpu')
+            cpu_s = time.perf_counter() - t0
+            agree, same_ids, counts = [], [], []
+            for i in range(n):
+                card = np.asarray(Image.open(os.path.join(out, f't{i}.tif')))
+                if card.dtype != np.int32 or card.shape != (512, 512):
+                    raise AssertionError(f'{method} map t{i}: {card.dtype} {card.shape}')
+                counts.append(int(card.max()) + 1)
+                if i < PREP_CPU_TILES:
+                    cpu = np.asarray(Image.open(os.path.join(out_cpu, f't{i}.tif')))
+                    agree.append(float((_boundaries(card) == _boundaries(cpu)).mean()))
+                    same_ids.append(float((card == cpu).mean()))
+            if min(agree) < PREP_BOUNDARY_AGREEMENT:
+                raise AssertionError(f'{method}: boundary agreement card vs CPU {agree}')
+            if method == 'slic' and min(same_ids) < PREP_BOUNDARY_AGREEMENT:
+                raise AssertionError(f'slic: ids equal card vs CPU at {same_ids} of the pixels')
+            print(f'[prep] get_superpixels({method}) on {n} seeded 512^2 tiles: '
+                  f'{card_s / n * 1e3:.1f} ms a tile on the card (files included; the CPU '
+                  f'{cpu_s / PREP_CPU_TILES * 1e3:.1f}), superpixels a tile {counts}; card vs CPU '
+                  f'on {PREP_CPU_TILES} tiles: boundary agreement {agree} (limit '
+                  f'{PREP_BOUNDARY_AGREEMENT}), ids equal at {same_ids} of the pixels'
+                  + (f' (limit {PREP_BOUNDARY_AGREEMENT})' if method == 'slic' else ''))
+
+        # (b) pseudo-label analysis
+        labels, pseudo = os.path.join(kept, 'labels'), os.path.join(kept, 'pseudo')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = analysis_pseudo_labels(labels, pseudo, n_classes=6, device=device)
+        card_s = time.perf_counter() - t0
+        cpu = analysis_pseudo_labels(labels, pseudo, n_classes=6, device='cpu')
+        for k in ('cnt_used', 'cnt_true'):
+            if not np.array_equal(card[k], cpu[k]):
+                raise AssertionError(f'analysis {k}: card and CPU differ')
+        for k in ('acc', 'diffi'):
+            if not np.allclose(card[k], cpu[k], rtol=0, atol=1e-5):
+                raise AssertionError(f'analysis {k}: card vs CPU {np.abs(card[k] - cpu[k]).max()}')
+        n_maps = len(os.listdir(pseudo))
+        used = card['cnt_used'].sum() / (n_maps * 512 * 512)
+        right = card['cnt_true'].sum() / max(card['cnt_used'].sum(), 1)
+        print(f'[prep] analysis_pseudo_labels over phase 6\'s {n_maps} stage-3 pseudo maps: '
+              f'{card_s:.2f} s on the card; counts equal the CPU\'s, acc / diffi within 1e-5; '
+              f'{used:.4f} of the pixels used, {right:.4f} of those right')
+
+        # (c) the stability check: SAM ViT-B, both generators
+        ln.launches = ra.launches = tw.launches = tw.cuda_launches = up.launches = 0
+        st.launches_blocked = st.launches_fused = ms_.launches = 0
+        report_path = os.path.join(tmp, 'stability.json')
+        t0 = time.perf_counter()
+        report = check_sam_stability.main(['--device', device, '--vit-config', 'vit_b',
+                                           '--tiles', '2', '--auto-thresh',
+                                           '--out', report_path])
+        stab_s = time.perf_counter() - t0
+        counts = {'layernorm': ln.launches, 'rel_attention': ra.launches,
+                  'two_way': tw.launches, 'upscale': up.launches,
+                  'stability_blocked': st.launches_blocked,
+                  'stability_fused': st.launches_fused, 'mask_stats': ms_.launches}
+        with open(report_path) as f:
+            if json.load(f) != json.loads(json.dumps(report)):
+                raise AssertionError('check_sam_stability: the report written differs')
+        if counts['stability_fused'] or not all(v > 0 for k, v in counts.items()
+                                                if k != 'stability_fused'):
+            raise AssertionError(f'check_sam_stability launches {counts}')
+        delta = report['stability_delta']
+        print(f'[prep] check_sam_stability vit_b, 2 tiles of 512^2, 32^2 points: {stab_s:.1f} s; '
+              f'{delta["n_candidates"]} candidates, mean |fast - exact| {delta["mean_abs"]:.4f}, '
+              f'flip rate {delta["flip_rate"]:.4f} at 0.95 and {delta["flip_rate_at_median"]:.4f} '
+              f'at the median; regions fast / exact: crop 0 '
+              f'{report["regions_crop0"]["region_counts_fast"]} / '
+              f'{report["regions_crop0"]["region_counts_exact"]}, crop 1 '
+              f'{report["regions_crop1"]["region_counts_fast"]} / '
+              f'{report["regions_crop1"]["region_counts_exact"]}; launches {counts}')
+
+        # (d) the tilers
+        rng = np.random.default_rng(22)
+        for name, shape, channels, convert, argv, sub in (
+                ('top_potsdam_2_10_RGBIR.tif', (6000, 6000), 4, convert_potsdam.main,
+                 lambda d, o: [d, '-o', o], ('img_dir', 'train')),
+                ('top_mosaic_09cm_area1.tif', (2000, 2500), 3, convert_vaihingen.main,
+                 lambda d, o: ['--image-dir', d, '-o', o], ('img_dir', 'train'))):
+            raw, out = os.path.join(tmp, f'raw_{channels}'), os.path.join(tmp, f'tiles_{channels}')
+            os.makedirs(raw)
+            scene = rng.integers(0, 256, size=shape + (channels,), dtype=np.uint8)
+            Image.fromarray(scene).save(os.path.join(raw, name))
+            t0 = time.perf_counter()
+            n = convert(argv(raw, out))
+            conv_s = time.perf_counter() - t0
+            boxes = tile_boxes(*shape, 512)
+            files = sorted(os.listdir(os.path.join(out, *sub)))
+            if n != len(boxes) or len(files) != len(boxes):
+                raise AssertionError(f'{name}: {n} tiles, {len(files)} files, '
+                                     f'{len(boxes)} boxes')
+            select = [3, 0, 1] if channels == 4 else [0, 1, 2]
+            prefix = '2_10' if channels == 4 else 'area1'
+            for x0, y0, x1, y1 in boxes[[0, len(boxes) // 2, -1]]:
+                f = f'{prefix}_{x0}_{y0}_{x1}_{y1}.png'
+                tile = np.asarray(Image.open(os.path.join(out, *sub, f)))
+                if not np.array_equal(tile, scene[y0:y1, x0:x1][..., select]):
+                    raise AssertionError(f'{name}: tile {f} differs from the scene')
+            print(f'[prep] {convert.__module__.rsplit(".", 1)[1]} on one synthetic '
+                  f'{shape[0]}x{shape[1]}x{channels} scene: {n} tiles as tile_boxes gives, '
+                  f'{conv_s:.2f} s; three tiles decoded by PIL equal their crops')
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description='Smoke test of regda_tpu_torch on one GPU.')
@@ -2438,6 +2834,12 @@ def main(argv=None) -> int:
     if record['launches'] < 3:
         raise AssertionError(f'segment_hist launched {record["launches"]} times '
                              f'in 3 stage-2 steps; LRH did not go through the kernel')
+    remat = phase_remat(device, bare)   # zeroes the count before each of its runs
+    record['launches_stage2_remat'] = remat['stage2']
+    record['launches_stage3_remat'] = remat['stage3']
+    for k in [k for k in bare if k.endswith('_bn')]:
+        del bare[k]
+    torch.cuda.empty_cache()
 
     ln.launches = ra.launches = 0
     sam = phase_sam(device)
@@ -2467,11 +2869,21 @@ def main(argv=None) -> int:
         rec['launches_regions'] = counts[key]
     torch.cuda.empty_cache()
 
-    # zeroes the histogram's count just before its stage-2 and stage-3 CLI runs
-    stages = phase_stages(device, bare)
-    record['launches_stages'] = stages['stage2']
-    record['launches_stage3'] = stages['stage3']
-    record['launches_stage3_bare'] = bare['stage3_launches']
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix='regda_kept_') as kept:
+        # zeroes the histogram's count just before its stage-2 and stage-3 CLI runs
+        stages = phase_stages(device, bare, keep=kept)
+        record['launches_stages'] = stages['stage2']
+        record['launches_stage3'] = stages['stage3']
+        record['launches_stage3_bare'] = bare['stage3_launches']
+        torch.cuda.empty_cache()
+        # zeroes every SAM kernel's count just before the stability check
+        prep = phase_prep(device, kept)
+    for rec, key in ((ln_record, 'layernorm'), (attn_record, 'rel_attention'),
+                     (tw_record, 'two_way'), (up_record, 'upscale'),
+                     (stb_record, 'stability_blocked'), (stf_record, 'stability_fused'),
+                     (stats_record, 'mask_stats')):
+        rec['launches_stability_check'] = prep[key]
 
     # one record per pallas_call: the blocked entry replaces both blocked TPU
     # kernels, so its record stands for each

@@ -11,7 +11,8 @@ prediction go through (BN folding and the fused dual-PPM forward on).
 of `train/steps.py:make_stage2_step` on seeded synthetic batches, with LRH
 over ragged region maps, the path whose histogram is a CUDA kernel;
 `stage3_steps(n)` does the same for `make_stage3_step`, on seeded soft
-pseudo-labels.
+pseudo-labels; both take `remat=True` for per-block gradient checkpointing,
+and `after_step`, called with each step's index and the state.
 `sam_entry()` builds SAM with seeded random weights and example crops and
 point prompts; its encoder runs the LayerNorm and attention CUDA kernels and
 its fast decode (`Sam.decode_points_fast`) the two-way and mask-head ones.
@@ -28,6 +29,7 @@ on its own.
 from __future__ import annotations
 
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -120,12 +122,14 @@ def synthetic_stage2_batch(rng: np.random.Generator, batch: int, size: int,
     return images_s, label_s, images_t, regs
 
 
-def stage2_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0):
+def stage2_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0,
+                 remat: bool = False):
     """A stage-2 train state from seeded random weights, with seeded normal
     prototypes standing in for a prototype checkpoint, and the stage-2 step
-    (align_domain, refine_label and sam_refine on)."""
+    (align_domain, refine_label and sam_refine on); `remat` checkpoints
+    every residual block of the encoder."""
     device = _device(device)
-    model = build_deeplabv2(resnet, num_classes=6,
+    model = build_deeplabv2(resnet, num_classes=6, remat=remat,
                             generator=torch.Generator().manual_seed(seed))
     model = model.to(device, memory_format=torch.channels_last)
     protos = np.random.default_rng(seed).normal(
@@ -138,13 +142,15 @@ def stage2_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0):
     return state, step
 
 
-def stage2_steps(n: int, device='cuda'):
+def stage2_steps(n: int, device='cuda', *, remat: bool = False,
+                 after_step: Optional[Callable] = None):
     """Run `n` f32 stage-2 steps of ResNet-101 (see `stage2_state`) at the
     recipe's shape, 8 crops of 512^2 per domain (configs/st/regda/
     _experiment.py:35), on seeded synthetic batches. Returns (state, metrics
-    per step, seconds per step); each step's time ends in a synchronize."""
+    per step, seconds per step); each step's time ends in a synchronize,
+    after which `after_step(i, state)` is called, outside the time."""
     device = _device(device)
-    state, step = stage2_state(device)
+    state, step = stage2_state(device, remat=remat)
     rng = np.random.default_rng(1)
     metrics, seconds = [], []
     for _ in range(n):
@@ -156,6 +162,8 @@ def stage2_steps(n: int, device='cuda'):
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         seconds.append(time.perf_counter() - t0)
+        if after_step is not None:
+            after_step(len(seconds) - 1, state)
     return state, metrics, seconds
 
 
@@ -171,24 +179,26 @@ def synthetic_soft_labels(rng: np.random.Generator, batch: int, size: int,
 
 
 def stage3_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0,
-                 **step_kwargs):
+                 remat: bool = False, **step_kwargs):
     """A stage-3 train state as `stage2_state` builds one, and the stage-3
     step (refine_label and sam_refine on, lt='uvem'; `step_kwargs`
     override)."""
-    state, _ = stage2_state(device, resnet=resnet, seed=seed)
+    state, _ = stage2_state(device, resnet=resnet, seed=seed, remat=remat)
     kwargs = dict(num_classes=6, refine_label=True, sam_refine=True, lt='uvem')
     kwargs.update(step_kwargs)
     return state, make_stage3_step(**kwargs)
 
 
-def stage3_steps(n: int, device='cuda'):
+def stage3_steps(n: int, device='cuda', *, remat: bool = False,
+                 after_step: Optional[Callable] = None):
     """Run `n` f32 stage-3 steps of ResNet-101 (see `stage3_state`) at the
     recipe's shape, 8 crops of 512^2 per domain, on seeded synthetic
     batches: `synthetic_stage2_batch`'s images, labels and region maps (ids
     0..MAX_REGION_ID) and `synthetic_soft_labels`. Returns (state, metrics
-    per step, seconds per step); each step's time ends in a synchronize."""
+    per step, seconds per step); each step's time ends in a synchronize,
+    after which `after_step(i, state)` is called, outside the time."""
     device = _device(device)
-    state, step = stage3_state(device)
+    state, step = stage3_state(device, remat=remat)
     rng = np.random.default_rng(1)
     metrics, seconds = [], []
     for _ in range(n):
@@ -201,6 +211,8 @@ def stage3_steps(n: int, device='cuda'):
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         seconds.append(time.perf_counter() - t0)
+        if after_step is not None:
+            after_step(len(seconds) - 1, state)
     return state, metrics, seconds
 
 

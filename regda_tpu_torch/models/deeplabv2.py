@@ -5,13 +5,15 @@ Encoder.py:87-186). The defaults, multi_layer=True, use_ppm=True,
 is_ins_norm=True, are the configuration every RegDA tool builds; the other
 settings give one head (`cls_pred`), ASPP heads, or no instance norm.
 `folded=True` is the inference-only model whose BatchNorms were folded into
-their convs (models/fold_bn.py).
+their convs (models/fold_bn.py). `output_stride` (8, 16 or 32) and `remat`
+(per-block gradient checkpointing in training) go to the encoder
+(models/resnet.py).
 
 The public layout is the JAX package's: NHWC images in; in train mode
-`(pred1, pred2, feat)` NHWC at stride 16 (`(pred, feat)` with one head); in
-eval mode (B, H, W, C) probabilities, the average of the two heads'
-softmaxes after one align-corners upsample of their concatenation (one
-head: its upsampled softmax). Inside, the model permutes to NCHW once
+`(pred1, pred2, feat)` NHWC at the output stride, 16 by default (`(pred,
+feat)` with one head); in eval mode (B, H, W, C) probabilities, the
+average of the two heads' softmaxes after one align-corners upsample of
+their concatenation (one head: its upsampled softmax). Inside, the model permutes to NCHW once
 (channels_last memory keeps the permutes free).
 
 `dtype` works as in the JAX package: parameters stay float32, and the
@@ -48,9 +50,11 @@ class DeeplabV2(nn.Module):
     def __init__(self, resnet_type: str = 'resnet101', num_classes: int = 6,
                  multi_layer: bool = True, use_ppm: bool = True,
                  is_ins_norm: bool = True, fc_dim: int = 2048, folded: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, output_stride: int = 16,
+                 remat: bool = False):
         super().__init__()
         self.resnet_type = resnet_type
+        self.output_stride = output_stride
         self.num_classes = num_classes
         self.multi_layer = multi_layer
         self.use_ppm = use_ppm
@@ -58,7 +62,7 @@ class DeeplabV2(nn.Module):
         self.fc_dim = fc_dim
         self.folded = folded
         self.dtype = dtype
-        self.encoder = ResNetEncoder(resnet_type, folded)
+        self.encoder = ResNetEncoder(resnet_type, folded, output_stride, remat)
 
         def head():
             if use_ppm:
@@ -71,15 +75,22 @@ class DeeplabV2(nn.Module):
         else:
             self.cls_pred = head()
 
+    @property
+    def remat(self) -> bool:
+        """Whether training checkpoints the encoder's blocks; the encoder's
+        ResNet holds the setting."""
+        return self.encoder.resnet.remat
+
     def features(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, 3) -> the encoder's NCHW stride-16 map in `dtype`,
-        instance-normalized where the model says so."""
+        """x (B, H, W, 3) -> the encoder's NCHW map at the output stride in
+        `dtype`, instance-normalized where the model says so."""
         feat = self.encoder(x.to(self.dtype).permute(0, 3, 1, 2))
         return instance_norm(feat) if self.is_ins_norm else feat
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
-        """x (B, H, W, 3). Train: (pred1, pred2, feat) NHWC at stride 16, or
-        (pred, feat) with one head, with head dropout drawn from `generator`.
+        """x (B, H, W, 3). Train: (pred1, pred2, feat) NHWC at the output
+        stride, or (pred, feat) with one head, with head dropout drawn from
+        `generator`.
         Eval: (B, H, W, C) probs."""
         if self.training and self.folded:
             raise RuntimeError('a folded DeeplabV2 is inference-only')

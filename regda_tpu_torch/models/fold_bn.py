@@ -68,10 +68,11 @@ def fold_batchnorm(state: Mapping[str, torch.Tensor],
 
 def folded_model(model: DeeplabV2) -> DeeplabV2:
     """A `folded=True` copy of `model` in eval mode, on its device and in
-    its memory format, carrying `fold_batchnorm(model.state_dict())`."""
+    its memory format, at its output stride, carrying
+    `fold_batchnorm(model.state_dict())`."""
     folded = DeeplabV2(model.resnet_type, model.num_classes, model.multi_layer,
                        model.use_ppm, model.is_ins_norm, model.fc_dim, folded=True,
-                       dtype=model.dtype)
+                       dtype=model.dtype, output_stride=model.output_stride)
     stem = model.encoder.resnet.conv1.weight
     fmt = (torch.channels_last if stem.is_contiguous(memory_format=torch.channels_last)
            else torch.contiguous_format)

@@ -5,11 +5,19 @@ BasicBlock (resnet18/34) and Bottleneck (resnet50/101/152), with the stride-2
 regda/resnet.py:192-207). Parameter names follow the reference's torch
 state_dict (`encoder.resnet.layer1.0.conv1.weight`, ...).
 
-Output stride 16 only (the configuration every RegDA tool builds): layer4
-has stride 1, its first block dilation 1 and the rest dilation 2
-(`_stage_plan(16)` in the JAX package). The stem is the plain 7x7/2 conv;
-the JAX package's space-to-depth rewrite (`StemConv`) exists for the TPU's
-matrix unit and gives the identical result.
+`output_stride` 16 (the configuration every RegDA tool builds) gives
+layer4 stride 1, its first block dilation 1 and the rest dilation 2; 8
+dilates layer3 too, and 32 dilates nothing (`stage_plan`, a copy of the JAX
+package's `_stage_plan`). The stem is the plain 7x7/2 conv; the JAX
+package's space-to-depth rewrite (`StemConv`) exists for the TPU's matrix
+unit and gives the identical result.
+
+`remat=True` (the reference's `with_cp`, regda/resnet.py:140-168; the JAX
+package's `nn.remat` around each block) checkpoints every residual block
+while the model trains with grad enabled: the backward recomputes a
+block's activations from its input instead of keeping them. The recompute
+runs with the block's BatchNorms' running-statistics update switched off,
+so the statistics move once a forward, as without remat.
 
 `folded=True` builds the inference-only encoder of a model whose BatchNorm
 affines were folded into their convs (models/fold_bn.py): each BN becomes a
@@ -27,9 +35,12 @@ Two layers carry the JAX package's semantics rather than torch's defaults:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 RESNET_DEPTHS = {
     'resnet18': (2, 2, 2, 2),
@@ -61,6 +72,8 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
+        # False while a checkpointed block recomputes its forward
+        self.update_stats = True
 
     def forward(self, x):
         if not self.training:
@@ -75,6 +88,8 @@ class BatchNorm2d(nn.Module):
                  + self.bias.view(-1, 1, 1))
         else:
             y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
@@ -176,21 +191,50 @@ class BasicBlock(nn.Module):
         return conv_norm(self.conv2, self.bn2, y, relu=True, residual=idt)
 
 
-# (stride, first-block dilation, later-block dilation) for layer1..4 at OS=16
-STAGE_PLAN = ((1, 1, 1), (2, 1, 1), (2, 1, 1), (1, 1, 2))
+def stage_plan(output_stride: int) -> tuple[tuple[int, int, int], ...]:
+    """(stride, first-block dilation, later-block dilation) for layer1..4,
+    per the reference's `_nostride_dilate` (regda/resnet.py:192-207)."""
+    if output_stride == 32:
+        return ((1, 1, 1), (2, 1, 1), (2, 1, 1), (2, 1, 1))
+    if output_stride == 16:
+        return ((1, 1, 1), (2, 1, 1), (2, 1, 1), (1, 1, 2))
+    if output_stride == 8:
+        return ((1, 1, 1), (2, 1, 1), (1, 1, 2), (1, 2, 4))
+    raise ValueError('output_stride must be 8, 16 or 32.')
+
+
+@contextlib.contextmanager
+def _stats_frozen(block: nn.Module):
+    """The block's BatchNorms leave their running statistics alone inside."""
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+
+
+def _checkpointed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _stats_frozen(block)))
 
 
 class ResNet(nn.Module):
-    """NCHW in, the last stage's (B, C, H/16, W/16) feature map out."""
+    """NCHW in, the last stage's (B, C, H/os, W/os) feature map out."""
 
-    def __init__(self, resnet_type: str = 'resnet101', folded: bool = False):
+    def __init__(self, resnet_type: str = 'resnet101', folded: bool = False,
+                 output_stride: int = 16, remat: bool = False):
         super().__init__()
+        plan = stage_plan(output_stride)
         block = BasicBlock if resnet_type in BASIC_BLOCK_TYPES else Bottleneck
+        self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = norm_layer(64, folded)
         in_ch, planes = 64, 64
         for stage, (n_blocks, (stride, d0, d1)) in enumerate(
-                zip(RESNET_DEPTHS[resnet_type], STAGE_PLAN), 1):
+                zip(RESNET_DEPTHS[resnet_type], plan), 1):
             blocks = []
             for b in range(n_blocks):
                 blocks.append(block(
@@ -205,15 +249,20 @@ class ResNet(nn.Module):
     def forward(self, x):
         x = conv_norm(self.conv1, self.bn1, x, relu=True)
         x = F.max_pool2d(x, 3, 2, 1)
-        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                x = _checkpointed(block, x) if remat else block(x)
+        return x
 
 
 class ResNetEncoder(nn.Module):
     """Holds the body as `resnet`, giving the reference's `encoder.resnet.*` keys."""
 
-    def __init__(self, resnet_type: str = 'resnet101', folded: bool = False):
+    def __init__(self, resnet_type: str = 'resnet101', folded: bool = False,
+                 output_stride: int = 16, remat: bool = False):
         super().__init__()
-        self.resnet = ResNet(resnet_type, folded)
+        self.resnet = ResNet(resnet_type, folded, output_stride, remat)
 
     def forward(self, x):
         return self.resnet(x)

@@ -55,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_model(cfg, num_classes: int, device: torch.device, ckpt: str | None = None):
     """The config's DeepLabv2 with the seeded initialisation (or `ckpt`'s
-    weights) on `device`, channels-last."""
-    model = build_deeplabv2(cfg.MODEL, num_classes,
+    weights) on `device`, channels-last; with per-block gradient
+    checkpointing where the config sets `REMAT = True`, as the JAX CLIs
+    read it."""
+    model = build_deeplabv2(cfg.MODEL, num_classes, remat=getattr(cfg, 'REMAT', False),
                             generator=torch.Generator().manual_seed(default_seed()))
     if ckpt:
         load_checkpoint(model, ckpt)

@@ -36,11 +36,15 @@ def import_config(config_name: str, prefix: str = 'regda_tpu_torch.configs',
     `postfix` to its SNAPSHOT_DIR, create that directory and copy the config
     file into it as config.py, as asked.
 
-    Each call executes the config module afresh, so a second call in one
-    process (another stage, another postfix) starts from the config's own
-    SNAPSHOT_DIR, not from the one an earlier call extended."""
+    Each call executes the config module afresh, and the config modules it
+    imports (an overlay such as `tiny_smoke_remat` star-imports its base), so
+    a second call in one process (another stage, another postfix, another
+    overlay) starts from the config's own SNAPSHOT_DIR, not from the one an
+    earlier call extended."""
     name = f'{prefix}.{config_name}'
-    sys.modules.pop(name, None)
+    for key in [k for k, m in sys.modules.items()
+                if k.startswith(prefix + '.') and not hasattr(m, '__path__')]:
+        sys.modules.pop(key)
     m = importlib.import_module(name)
     m.SNAPSHOT_DIR += postfix
     if create:

@@ -28,12 +28,21 @@ import regda_tpu_torch.utils.profiling, regda_tpu_torch.tools.train_src
 import regda_tpu_torch.tools.init_prototypes, regda_tpu_torch.tools.train_align_reg
 import regda_tpu_torch.tools.eval, regda_tpu_torch.pseudo, regda_tpu_torch.tools.train_ssl_reg
 import regda_tpu_torch.tools.lrh_mechanism, regda_tpu_torch.tools.run_parity
+import regda_tpu_torch.ops.slic, regda_tpu_torch.data_prep.tiling, regda_tpu_torch.analysis
+import regda_tpu_torch.data_prep.superpixels, regda_tpu_torch.tools.check_sam_stability
+import regda_tpu_torch.tools.convert_potsdam, regda_tpu_torch.tools.convert_potsdam_rgb
+import regda_tpu_torch.tools.convert_vaihingen, regda_tpu_torch.tools.remat_memory
 from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.ops.lrh import homogenize
 model = build_deeplabv2('resnet18', 6, generator=torch.Generator().manual_seed(0))
 with torch.no_grad():
     probs = model.eval()(torch.randn(1, 32, 32, 3))
 assert probs.shape == (1, 32, 32, 6)
+remat = build_deeplabv2('resnet18', 6, output_stride=8, remat=True).train()
+remat(torch.randn(2, 32, 32, 3))[0].sum().backward()
+sup = regda_tpu_torch.data_prep.superpixels.superpixel_labels(
+    np.zeros((32, 32, 3), np.uint8), torch.device('cpu'), iterations=2)
+assert sup.shape == (32, 32)
 labels = homogenize(torch.zeros(1, 32, 32, dtype=torch.int32),
                     torch.ones(1, 32, 32, dtype=torch.int32))
 state, step = regda_tpu_torch.entry.stage3_state('cpu', resnet='resnet18', lt='ghm')
