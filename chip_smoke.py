@@ -84,6 +84,31 @@ Phases (any failure raises, and the exit code is non-zero):
               step, ms/step and peak beside the plain runs'. (Where the
               memory goes, with and without remat: `python -m
               regda_tpu_torch.tools.remat_memory`.)
+  3b. parallel `phase_parallel`: the same stage-2 and stage-3 steps inside a
+              one-rank NCCL process group (the losses' and gradients'
+              collectives run, over one rank; each BatchNorm takes the
+              plain cuDNN path, its one rank's statistics being the global
+              ones), held to the plain runs' losses, BN statistics,
+              parameters, prototypes and EMAs (PARALLEL_* below), one
+              histogram launch a step, ms/step beside the plain step's;
+              then stage 2 again with every BatchNorm forced onto the
+              formula of N > 1 ranks (`_global_forward`: all-reduced sums),
+              its ms/step and peak beside the plain step's, step 1 held at
+              TWO_RANK_RTOL. `phase_parallel_two`: two ranks sharing the
+              card over gloo, two stage-2 steps of 4 + 4 rows a domain,
+              step 1 against the plain step 1 of 8 (TWO_RANK_RTOL); where
+              gloo refuses a collective on CUDA tensors (a one-element
+              probe), it says so and the phase goes on; any other fault
+              fails. Then `dryrun_data_parallel(2, 'cuda', backend='gloo')`
+              on the same two ranks.
+              After phase 5, `phase_data_mesh`: `seg_everything --data-mesh
+              2` (two processes on the card) over 8 tiles of 512^2 with ViT-B
+              writes the one-process run's maps exactly.
+  8.  periphery `phase_periphery` (after phase 5 too): the mixes, whitening,
+              GDP and alignment losses, EMA, TransNorm, the discriminators,
+              DeeplabV2MMD and SpixelNet at the recipe's widths on the card
+              against the CPU (PERIPHERY_TOL below; the mixes and the EMA
+              exactly).
   4. sam      `sam_entry()`: SAM ViT-B at full width and depth, bf16 compute
               with f32 weights: `encode` of the 5-crop pyramid of one tile
               (5 x 1024^2) then `decode_points` of 64 grid points on crop 0.
@@ -167,7 +192,8 @@ Phases (any failure raises, and the exit code is non-zero):
               2000 x 2500 IRRG one: the tile count `tile_boxes` gives, three
               tiles decoded by PIL equal to their crops.
 Launch counts are zeroed just before phases 2-3, again just before phase
-3's stage-3 steps, just before each remat run, just before the encode of
+3's stage-3 steps, just before each remat run and each of phase 3b's
+group runs (and in each of its two ranks), just before the encode of
 phase 4, again just before its fast decode, again just before phase 5's
 batch call, again just before phase 6's stage-2 run and its stage-3 run,
 and just before phase 7's stability check, and read just after each.
@@ -181,7 +207,9 @@ before it is the card's name and power limit, and the line before that the
 kernels' JSON record, one for each of the JAX package's nine `pallas_call`s
 (the blocked stability entry stands for both blocked TPU kernels); the
 histogram's record carries its launches in phase 3's stage-2 steps
-(`launches`), in phase 6's stage-2 and stage-3 CLI runs (`launches_stages`,
+(`launches`), in phase 3b's one-rank group (`launches_parallel_stage2`,
+`launches_parallel_stage3`) and on each of its two ranks
+(`launches_two_ranks`, where gloo ran), in phase 6's stage-2 and stage-3 CLI runs (`launches_stages`,
 `launches_stage3`), in phase 3's bare stage-3 steps
 (`launches_stage3_bare`) and in its remat steps (`launches_stage2_remat`,
 `launches_stage3_remat`); the SAM kernels' records carry their launches in
@@ -198,6 +226,7 @@ wrapper, warm, cold, and cold in a CUDA graph).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -1738,13 +1767,26 @@ def _bn_stats(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items() if 'running' in k}
 
 
-def _first_bn_stats(into: dict):
+def _first_bn_stats(into: dict, protos: dict | None = None):
     """An `after_step` for `stage{2,3}_steps` that fills `into` with the
-    running statistics after step 1."""
+    running statistics after step 1 (and `protos`, where given, with the
+    prototypes then, under 'prototypes')."""
     def after_step(i, state):
         if i == 0:
             into.update(_bn_stats(state.model))
+            if protos is not None:
+                protos['prototypes'] = state.prototypes.detach().clone()
     return after_step
+
+
+def _final_state(state) -> dict:
+    """Host copies of a train state's parameters, running statistics,
+    prototypes and class-balance EMAs, by name."""
+    out = {f'model.{k}': v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    out.update(prototypes=state.prototypes.detach().cpu().clone(),
+               class_freq_s=state.class_freq_s.freq.detach().cpu().clone(),
+               class_freq_t=state.class_freq_t.freq.detach().cpu().clone())
+    return out
 
 
 def phase_train(device) -> dict:
@@ -1755,7 +1797,8 @@ def phase_train(device) -> dict:
     (since the caller zeroed the count), 'stage3_launches', and per stage
     'stage{n}_metrics' (floats a step), 'stage{n}_peak' (GiB),
     'stage{n}_bn1' and 'stage{n}_bn' (the running statistics after step 1
-    and after the 3 steps)}."""
+    and after the 3 steps), 'stage{n}_protos1' (the prototypes after step
+    1) and 'stage{n}_state' (`_final_state` after the 3 steps)}."""
     import torch
     from regda_tpu_torch.entry import stage2_steps, stage3_steps
     from regda_tpu_torch.ops.kernels import segment_hist as sh
@@ -1767,8 +1810,8 @@ def phase_train(device) -> dict:
             sh.launches = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        bn1 = {}
-        state, metrics, seconds = run(3, device, after_step=_first_bn_stats(bn1))
+        bn1, protos1 = {}, {}
+        state, metrics, seconds = run(3, device, after_step=_first_bn_stats(bn1, protos1))
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
         for i, vals in enumerate(metrics):
             if not all(math.isfinite(v) for v in vals.values()):
@@ -1780,7 +1823,9 @@ def phase_train(device) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**30
         out.update({f'stage{stage}_ms': ms, f'stage{stage}_metrics': metrics,
                     f'stage{stage}_peak': peak, f'stage{stage}_bn1': bn1,
-                    f'stage{stage}_bn': _bn_stats(state.model)})
+                    f'stage{stage}_bn': _bn_stats(state.model),
+                    f'stage{stage}_protos1': protos1['prototypes'],
+                    f'stage{stage}_state': _final_state(state)})
         extra = (f'; segment_hist launches {sh.launches} in 3 steps'
                  if stage == 3 else '')
         print(f'[train] ResNet-101 stage-{stage} f32 2x8x512^2: '
@@ -2782,6 +2827,491 @@ def phase_prep(device, kept: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ parallel
+# Phase 3b holds the data-parallel steps to the plain ones of phase 3. At
+# world size 1 the losses' and gradients' collectives sum one rank and the
+# BatchNorms take the plain path (a rank's statistics are the global ones),
+# so step 1's losses are held to PARALLEL_FIRST_RTOL (measured: equal).
+# Later steps start from parameters that the backward's unordered atomic
+# adds leave a few ulps apart in any two runs (phase 3's remat holds), so
+# their losses are held to PARALLEL_LATER_RTOL (measured 1.24e-6), the BN
+# statistics to REMAT_BN_TOL (1.4e-5), and the parameters, prototypes and
+# EMAs after 3 steps to PARALLEL_STATE_TOL (2.5e-6).
+PARALLEL_FIRST_RTOL = 1e-6
+PARALLEL_LATER_RTOL = 1e-5
+PARALLEL_STATE_TOL = dict(rtol=1e-4, atol=1e-5)
+# Two ranks on one card (gloo), stage-2 step 1 of 4 rows a domain a rank
+# against the plain step 1 of 8: the global BN sums by its own formula, and
+# cuDNN picks its algorithms by batch size, so the two sum in other orders
+# (measured 1.06e-6). The same tolerance holds the one-rank run whose BNs
+# are forced onto that formula.
+TWO_RANK_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def _global_bn():
+    """While inside, every train-mode BatchNorm in a data-parallel group
+    takes the formula of N > 1 ranks (`BatchNorm2d._global_forward`), also
+    in a group of one, where it otherwise takes cuDNN's: what a step on N
+    cards pays for its BatchNorms, measured on one."""
+    from regda_tpu_torch.models.resnet import BatchNorm2d
+    plain = BatchNorm2d.forward
+
+    def forward(self, x):
+        if self.training and self.data_group is not None:
+            return self._global_forward(x)
+        return plain(self, x)
+
+    BatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm2d.forward = plain
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _worst(got: dict, want: dict, keys=None) -> tuple[float, str]:
+    """(largest |got - want|, its name) over the named tensors."""
+    keys = want.keys() if keys is None else keys
+    return max((float((got[k].float().cpu() - want[k].float().cpu()).abs().max()), k)
+               for k in keys)
+
+
+def _hold_state(what: str, got: dict, want: dict, tol: dict) -> str:
+    import torch
+    bad = [k for k in want if not torch.allclose(got[k].float().cpu(), want[k].float().cpu(),
+                                                 **tol)]
+    worst, name = _worst(got, want)
+    print(f'[parallel] {what}: largest gap {worst:.3g} at {name}; {len(bad)} of {len(want)} '
+          f'beyond {tol}')
+    if bad:
+        raise AssertionError(f'{what}: {len(bad)} tensors beyond {tol}, e.g. {bad[0]}; '
+                             f'largest gap {worst} at {name}')
+    return f'{worst:.3g} at {name}'
+
+
+def phase_parallel(device, bare: dict) -> dict:
+    """Phase 3b: `stage2_steps(3)` and `stage3_steps(3)` (ResNet-101,
+    2x8x512^2, f32) inside a one-rank NCCL process group, from the seeds of
+    phase 3's plain runs in `bare`: losses (step 1 PARALLEL_FIRST_RTOL, later
+    REMAT_LATER_RTOL), running statistics after step 1 (REMAT_BN_TOL) and
+    after 3 steps, parameters, prototypes and class-balance EMAs after 3
+    steps (PARALLEL_STATE_TOL) against the plain runs'; exactly one histogram
+    launch a step (the count zeroed just before each run); ms/step beside
+    the plain step's, the difference being the cost of the losses' and
+    gradients' collectives. Then `stage2_steps(3)` in the group with every
+    BatchNorm on the N > 1 formula (`_global_bn`): step 1's losses
+    (TWO_RANK_RTOL) and BN statistics (REMAT_BN_TOL) against the plain
+    run's, one histogram launch a step, ms/step and peak beside the plain
+    step's; then one more such step's wall time and its kernels by kind
+    (torch.profiler), and the device's idle share. -> {'stage2': launches,
+    'stage3': launches, 'global_bn': launches, 'stage2_ms', 'stage3_ms',
+    'global_bn_ms', 'global_bn_peak'}."""
+    import torch
+    import torch.distributed
+    from regda_tpu_torch import parallel
+    from regda_tpu_torch.entry import stage2_steps, stage3_steps
+    from regda_tpu_torch.ops.kernels import segment_hist as sh
+
+    group = parallel.data_group(0, 1, device, init_method=f'tcp://127.0.0.1:{_free_port()}')
+    out = {}
+    try:
+        for stage, run in ((2, stage2_steps), (3, stage3_steps)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sh.launches = 0
+            bn1 = {}
+            state, metrics, seconds = run(3, device, group=group,
+                                          after_step=_first_bn_stats(bn1))
+            out[f'stage{stage}'] = sh.launches
+            if sh.launches != 3:
+                raise AssertionError(f'segment_hist launched {sh.launches} times in 3 '
+                                     f'data-parallel stage-{stage} steps; expected one a step')
+            gaps = [max(abs(float(m[k]) - v) / max(abs(v), 1e-12) for k, v in want.items())
+                    for m, want in zip(metrics, bare[f'stage{stage}_metrics'])]
+            print(f'[parallel] stage-{stage} group losses against the plain run\'s, relative, '
+                  f'by step: {", ".join(f"{g:.3g}" for g in gaps)}')
+            for i, gap in enumerate(gaps):
+                rtol = PARALLEL_FIRST_RTOL if i == 0 else PARALLEL_LATER_RTOL
+                if not gap <= rtol:
+                    raise AssertionError(f'data-parallel stage-{stage} step {i}: losses '
+                                         f'{gap:.3g} from the plain step\'s (rtol {rtol:g})')
+            bn1_gap = _hold_state(f'stage-{stage} group step 1 BN statistics', bn1,
+                                  bare[f'stage{stage}_bn1'], REMAT_BN_TOL)
+            final = _final_state(state)
+            want = bare[f'stage{stage}_state']
+            bn_keys = [k for k in want if 'running' in k]
+            bn_gap = _hold_state(f'stage-{stage} group BN statistics after 3 steps',
+                                 {k: final[k] for k in bn_keys}, {k: want[k] for k in bn_keys},
+                                 REMAT_BN_TOL)
+            rest = [k for k in want if 'running' not in k]
+            state_gap = _hold_state(f'stage-{stage} group parameters, prototypes, EMAs',
+                                    {k: final[k] for k in rest}, {k: want[k] for k in rest},
+                                    PARALLEL_STATE_TOL)
+            ms = sum(seconds[1:]) / 2 * 1e3
+            plain = bare[f'stage{stage}_ms']
+            out[f'stage{stage}_ms'] = ms
+            print(f'[parallel] world size 1 ({torch.distributed.get_backend()}) stage-{stage} '
+                  f'ResNet-101 f32 2x8x512^2: '
+                  f'{ms:.1f} ms/step (steps 1-2) against {plain:.1f} plain '
+                  f'({ms - plain:+.1f} ms, {ms / plain - 1:+.2%}: the collectives), peak '
+                  f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB against '
+                  f'{bare[f"stage{stage}_peak"]:.2f}; losses {[float(m["total"]) for m in metrics]} '
+                  f'within {gaps[0]:.3g} (step 1) and {max(gaps[1:]):.3g} (steps 2-3) of the '
+                  f'plain run\'s (relative); BN statistics after '
+                  f'step 1 {bn1_gap}, after 3 steps {bn_gap}; parameters, prototypes and EMAs '
+                  f'after 3 steps {state_gap}; segment_hist launches {sh.launches} in 3 steps')
+            del state, final
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sh.launches = 0
+        bn1 = {}
+        with _global_bn():
+            state, metrics, seconds = stage2_steps(3, device, group=group,
+                                                   after_step=_first_bn_stats(bn1))
+        out['global_bn'] = sh.launches
+        if sh.launches != 3:
+            raise AssertionError(f'segment_hist launched {sh.launches} times in 3 stage-2 '
+                                 f'steps with the global BatchNorm; expected one a step')
+        want = bare['stage2_metrics'][0]
+        gap = max(abs(float(metrics[0][k]) - v) / max(abs(v), 1e-12) for k, v in want.items())
+        if not gap <= TWO_RANK_RTOL:
+            raise AssertionError(f'stage-2 step 1 with the global BatchNorm: losses {gap:.3g} '
+                                 f'from the plain step\'s (rtol {TWO_RANK_RTOL:g})')
+        bn1_gap = _hold_state('stage-2 global-BN step 1 BN statistics', bn1,
+                              bare['stage2_bn1'], REMAT_BN_TOL)
+        ms, peak = sum(seconds[1:]) / 2 * 1e3, torch.cuda.max_memory_allocated() / 2**30
+        plain, group_ms = bare['stage2_ms'], out['stage2_ms']
+        out.update(global_bn_ms=ms, global_bn_peak=peak)
+        # beside the group's cuDNN-BN run just before too: phase 3's one
+        # plain reading has spread from 430 to 520 ms between calls
+        print(f'[parallel] world size 1, every BatchNorm on the N > 1 formula '
+              f'(_global_forward), stage-2 ResNet-101 f32 2x8x512^2: {ms:.1f} ms/step '
+              f'(steps 1-2) against {plain:.1f} plain ({ms - plain:+.1f} ms, '
+              f'{ms / plain - 1:+.2%}) and {group_ms:.1f} in the group with cuDNN\'s BN '
+              f'({ms / group_ms - 1:+.2%}), peak {peak:.2f} GiB against '
+              f'{bare["stage2_peak"]:.2f}; step 1\'s losses within {gap:.3g} of the plain '
+              f'step\'s (relative), BN statistics {bn1_gap}; segment_hist launches '
+              f'{sh.launches} in 3 steps')
+        del state
+        # where that step's time goes: one more step's wall time (after a
+        # warm one), then its kernels by kind under torch.profiler
+        import numpy as np
+        from regda_tpu_torch.entry import stage2_state, synthetic_stage2_batch
+        with _global_bn():
+            state, step = stage2_state(device, group=group)
+            batch = [torch.from_numpy(a).to(device)
+                     for a in synthetic_stage2_batch(np.random.default_rng(2), 8, 512)]
+            step(state, *batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, *batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            kernel_ms, count = serve_split(lambda: step(state, *batch))
+        busy = sum(kernel_ms.values())
+        print(f'[parallel] one stage-2 step with the N > 1 BatchNorm: {wall:.1f} ms of wall '
+              f'time; one more under torch.profiler: {_split_line(kernel_ms, count)}; '
+              f'device idle {1 - busy / wall:.1%} of the wall step')
+        del state, batch
+    finally:
+        parallel.shutdown()
+    return out
+
+
+def _two_rank_step(rank: int, init: str, out: str, device: str) -> None:
+    """One rank of phase 3b's two ranks on one card (gloo): a one-element
+    all-reduce of a CUDA tensor first, whose failure on either rank is
+    gloo's refusal (the ranks agree on it over a CPU tensor, which gloo
+    always takes); then `stage2_steps(2)` on its 4 rows a domain. Writes
+    step 1's losses, prototypes and BN statistics, step 2's seconds and the
+    histogram's launches, or the refusal, or any other error, to
+    out/rank<r>.pt."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    from regda_tpu_torch import parallel
+    from regda_tpu_torch.entry import stage2_steps
+    from regda_tpu_torch.ops.kernels import segment_hist as sh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {}
+    try:
+        group = parallel.data_group(rank, 2, device, init_method=init, backend='gloo')
+        try:
+            refusal = None
+            try:
+                dist.all_reduce(torch.ones(1, device=device))
+            except RuntimeError:
+                refusal = traceback.format_exc()
+            accepted = torch.tensor([0 if refusal else 1])
+            dist.all_reduce(accepted, op=dist.ReduceOp.MIN)
+            if not int(accepted):
+                result = dict(refused=refusal or 'the other rank was refused')
+            else:
+                sh.launches = 0
+                bn1, protos1 = {}, {}
+                state, metrics, seconds = stage2_steps(
+                    2, device, group=group, after_step=_first_bn_stats(bn1, protos1))
+                launches = sh.launches
+                parallel.assert_replicated(dict(protos1, **bn1), group)
+                result = dict(metrics={k: float(v) for k, v in metrics[0].items()},
+                              seconds=seconds[1], launches=launches,
+                              prototypes=protos1['prototypes'].cpu(),
+                              bn1={k: v.cpu() for k, v in bn1.items()})
+        finally:
+            parallel.shutdown()
+    except Exception:      # reported by the parent, which fails
+        result = dict(error=traceback.format_exc())
+    torch.save(result, f'{out}/rank{rank}.pt')
+
+
+def phase_parallel_two(bare: dict, device: str = 'cuda:0') -> dict | None:
+    """Phase 3b, two ranks sharing the one card over gloo (NCCL refuses two
+    ranks on one GPU): two stage-2 steps at full width, 4 rows a domain a
+    rank, step 1 held to the plain step 1 of phase 3 on all 8 (losses and
+    prototypes TWO_RANK_RTOL, BN statistics REMAT_BN_TOL), the ranks'
+    prototypes and BN statistics bit for bit alike, one histogram launch a
+    step on each rank, step 2's ms. Where gloo refuses the probe's
+    all-reduce of a CUDA tensor, prints why and returns None; any other
+    fault of a rank fails. -> {'launches': per rank, 'ms': per rank}."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix='regda_two_') as tmp:
+        init = f'tcp://127.0.0.1:{_free_port()}'
+        t0 = time.perf_counter()
+        mp.spawn(_two_rank_step, args=(init, tmp, device), nprocs=2, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(f'{tmp}/rank{r}.pt') for r in range(2)]
+    errors = [r['error'] for r in ranks if 'error' in r]
+    if errors:
+        raise AssertionError(f'two ranks on one card (gloo): a rank failed:\n{errors[0]}')
+    refused = [r['refused'] for r in ranks if 'refused' in r]
+    if refused:
+        print(f'[parallel] two ranks on one card: gloo refuses an all-reduce of a CUDA '
+              f'tensor, the world-size-1 run stands alone. '
+              f'{refused[0].strip().splitlines()[-1]}')
+        return None
+    want = bare['stage2_metrics'][0]
+    for r, res in enumerate(ranks):
+        if res['launches'] != 2:
+            raise AssertionError(f'rank {r}: segment_hist launched {res["launches"]} times '
+                                 f'in two data-parallel steps')
+        for k, v in want.items():
+            if not math.isclose(res['metrics'][k], v, rel_tol=TWO_RANK_RTOL):
+                raise AssertionError(f'two ranks, rank {r}: {k} {res["metrics"][k]} vs the '
+                                     f'one-process step\'s {v} (rtol {TWO_RANK_RTOL:g})')
+    protos_gap = _hold_state('two ranks: prototypes after step 1',
+                             {'p': ranks[0]['prototypes']}, {'p': bare['stage2_protos1']},
+                             dict(rtol=TWO_RANK_RTOL, atol=1e-6))
+    bn_gap = _hold_state('two ranks: BN statistics after step 1', ranks[0]['bn1'],
+                         bare['stage2_bn1'], REMAT_BN_TOL)
+    gaps = max(abs(ranks[0]['metrics'][k] - v) / abs(v) for k, v in want.items() if v)
+    print(f'[parallel] two ranks on one card (gloo, CUDA tensors), stage 2 ResNet-101 f32, '
+          f'4 + 4 rows a domain: step 2 {ranks[0]["seconds"] * 1e3:.1f} / '
+          f'{ranks[1]["seconds"] * 1e3:.1f} ms on ranks 0 / 1 (both share the card; phase 3\'s '
+          f'plain step of 8 rows {bare["stage2_ms"]:.1f}), {wall:.1f} s for the two processes '
+          f'in all; step 1\'s losses within {gaps:.3g} of the one-process step\'s, '
+          f'prototypes {protos_gap}, BN statistics {bn_gap}; segment_hist launches '
+          f'{[r["launches"] for r in ranks]} in 2 steps a rank')
+    return {'launches': [r['launches'] for r in ranks],
+            'ms': [r['seconds'] * 1e3 for r in ranks]}
+
+
+def phase_data_mesh(device: str = 'cuda', model_type: str = 'vit_b', img_size: int = 1024,
+                    n: int = 8, size: int = 512) -> None:
+    """Phase 3b, SAM replicas: `seg_everything --data-mesh 2` (two processes
+    on the one card, each writing the maps of its tiles) over phase 5's 8
+    tiles of 512^2 (SAM ViT-B, seeded weights, both thresholds open so that
+    NMS paints regions), against the one-process run: every `reg_dir/*.tif`
+    equal, not all empty."""
+    import os
+    import tempfile
+    import numpy as np
+    from PIL import Image
+    from regda_tpu_torch.tools import seg_everything
+    rng = np.random.default_rng(0)
+    tiles = [rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8) for _ in range(n)]
+    args = ['--model-type', model_type, '--img-size', str(img_size), '--pred-iou-thresh=-1e9',
+            '--stability-thresh', '0', '--batch-tiles', str(n // 2), '--device', device]
+    with tempfile.TemporaryDirectory(prefix='regda_mesh_') as tmp:
+        dirs, seconds = {}, {}
+        for name in ('one', 'two'):
+            img_dir = os.path.join(tmp, name, 'img_dir', 'train')
+            os.makedirs(img_dir)
+            for i, t in enumerate(tiles):
+                Image.fromarray(t).save(os.path.join(img_dir, f'tile{i}.png'))
+            t0 = time.perf_counter()
+            seg_everything.main(['--img-dirs', img_dir] + args
+                                + (['--data-mesh', '2'] if name == 'two' else []))
+            seconds[name] = time.perf_counter() - t0
+            dirs[name] = img_dir.replace('img_dir', 'reg_dir')
+        names = sorted(os.listdir(dirs['one']))
+        if names != sorted(os.listdir(dirs['two'])) or len(names) != n:
+            raise AssertionError(f'--data-mesh 2 wrote {sorted(os.listdir(dirs["two"]))}, '
+                                 f'one process {names}')
+        regions = 0
+        for name in names:
+            a = np.asarray(Image.open(os.path.join(dirs['one'], name)))
+            b = np.asarray(Image.open(os.path.join(dirs['two'], name)))
+            if not np.array_equal(a, b):
+                raise AssertionError(f'--data-mesh 2: {name} differs from the one-process map '
+                                     f'at {int((a != b).sum())} pixels')
+            regions += len(np.unique(a[a > 0]))
+    if regions == 0:
+        raise AssertionError('--data-mesh 2: every map is empty; nothing was compared')
+    print(f'[parallel] seg_everything --data-mesh 2 over {n} tiles of {size}^2 ({model_type}, '
+          f'two processes on one card): {n} maps equal to the one-process run\'s, {regions} '
+          f'regions in all; {seconds["two"]:.1f} s against {seconds["one"]:.1f} s in one '
+          f'process (each process builds its own SAM)')
+
+
+# --------------------------------------------------------------- periphery
+# cuDNN against oneDNN, f32, TF32 off; DEEP_TOL for DeeplabV2MMD's 50-layer
+# train forward (its logits about 2 in size), where the two libraries' sums
+# part by ~1e-4 after the encoder
+PERIPHERY_TOL = dict(rtol=1e-4, atol=1e-4)
+DEEP_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def phase_periphery(device, size: int = 512, feat_hw: int = 64, width: int = 2048,
+                    resnet: str = 'ResNet101', mmd: str = 'resnet50') -> None:
+    """Phase 8: each periphery module at the recipe's widths on the card
+    against the same call on the CPU, float32: the mixes exactly on 8 x
+    512^2 images with C = 6 labels; the whitening, GDP, alignment, SAW,
+    pixel-contrast, triplet, MSC and context losses on 2048-channel
+    features at 64^2 (8 images; MSC, triplet on 1024 rows) within
+    PERIPHERY_TOL; the EMA of a ResNet-101 DeepLabv2's parameters exactly;
+    TransNorm on 16 x 64^2 x 2048 (8 + 8), the discriminators on 6-class
+    softmax maps (FCDiscriminator 8 x 512^2, the local one on [logits,
+    features] at 64^2, the pixel one at 64^2), DeeplabV2MMD (ResNet-50) and
+    SpixelNet on 2 x 512^2, outputs within PERIPHERY_TOL."""
+    import numpy as np
+    import torch
+    from regda_tpu_torch.entry import build_deeplabv2
+    from regda_tpu_torch.models.deeplab_mmd import DeeplabV2MMD
+    from regda_tpu_torch.models.discriminators import (FCDiscriminator,
+                                                       FCDiscriminatorLocal,
+                                                       PixelDiscriminator)
+    from regda_tpu_torch.models.resnet import ResNet
+    from regda_tpu_torch.models.spixelnet import SpixelNet
+    from regda_tpu_torch.models.transnorm import TransNorm
+    from regda_tpu_torch.ops import align_losses as A
+    from regda_tpu_torch.ops import losses_extra as E
+    from regda_tpu_torch.ops import mix as M
+    from regda_tpu_torch.ops import whiten as W
+    from regda_tpu_torch.utils import ema as EMA
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    worst = {}
+
+    def both(name, fn, *arrays, exact=False, tol=PERIPHERY_TOL):
+        cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        got, want = fn(*[a.to(device) for a in cpu]), fn(*cpu)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        gap = 0.0
+        for g, w in zip(got, want):
+            g = g.detach().cpu()
+            w = w.detach()
+            if exact:
+                if not torch.equal(g, w):
+                    raise AssertionError(f'periphery {name}: card differs from the CPU')
+            else:
+                gap = max(gap, float((g - w).abs().max()))
+                if not bool(torch.isfinite(w).all()) or not torch.allclose(g, w, **tol):
+                    raise AssertionError(f'periphery {name}: card {g.flatten()[:4]} vs CPU '
+                                         f'{w.flatten()[:4]}, largest gap {gap:.3g}, beyond {tol}')
+        worst[name] = gap
+
+    img = rng.random((8, size, size, 3), np.float32)
+    img2 = rng.random((8, size, size, 3), np.float32)
+    lab = rng.integers(-1, 6, (8, size, size)).astype(np.int64)
+    lab2 = rng.integers(-1, 6, (8, size, size)).astype(np.int64)
+    chosen = M.classmix_draw(torch.Generator().manual_seed(0), 6, 0.5)
+    box = M.box_mask(size, size, 0.4, 0.4 * size, 0.6 * size)
+    idx = torch.randperm(8, generator=torch.Generator().manual_seed(1))
+    both('classmix', lambda a, b, c, d: M.classmix_apply(chosen, a, b, c, d),
+         img, lab, img2, lab2, exact=True)
+    both('cutmix', lambda a, b, c, d: M.cutmix_apply(box.to(a.device), a, b, c, d),
+         img, lab, img2, lab2, exact=True)
+    both('cutmix2', lambda a, b: M.cutmix2_apply(idx, box.to(a.device), a, b), img, lab,
+         exact=True)
+    both('mixup', lambda a, b, c, d: M.mixup_apply(idx, 0.3, a, b, c, d), img, lab, img2, lab2,
+         exact=True)
+    del img, img2
+
+    feat = rng.normal(size=(8, feat_hw, feat_hw, width)).astype(np.float32)
+    flab = rng.integers(-1, 6, (8, feat_hw, feat_hw)).astype(np.int64)
+    logits = rng.normal(size=(8, feat_hw, feat_hw, 6)).astype(np.float32)
+    logits2 = rng.normal(size=(8, feat_hw, feat_hw, 6)).astype(np.float32)
+    protos = rng.normal(size=(6, width)).astype(np.float32)
+    both('class_ware_whitening', lambda f, l: W.class_ware_whitening(f, l, range(6), 8),
+         feat, flab)
+    both('gdp_loss', lambda x, l: E.gdp_loss(E.GDPState.create(device=x.device), x, l)[0],
+         rng.normal(size=(8, size, size, 6)).astype(np.float32) * 3, lab)
+    both('class_align_loss', A.class_align_loss, protos, protos[::-1].copy())
+    both('instance_align_loss', A.instance_align_loss, feat, flab, protos)
+    both('saw_loss', lambda f, w: A.saw_loss(f, w, [1, 2]), feat,
+         rng.normal(size=(6, width)).astype(np.float32))
+    prio = A.pixel_contrast_priority(torch.Generator().manual_seed(2), 8, 6, feat_hw ** 2)
+    both('pixel_contrast_loss',
+         lambda f, l, p: A.pixel_contrast_loss_body(prio.to(f.device), f, l, p, 6),
+         feat, np.abs(flab), rng.integers(0, 6, (8, feat_hw, feat_hw)))
+    rows = feat.reshape(-1, width)[:1024]
+    both('triplet_loss', A.triplet_loss, rows, rng.integers(0, 6, 1024))
+    both('msc_loss', lambda s, l, t_: A.msc_loss(s, l, t_, 6), rows,
+         rng.integers(0, 6, 1024), feat.reshape(-1, width)[1024:2048])
+    both('icr_loss', lambda a, b, f: A.icr_loss(a, b, f, 6), logits, logits2, feat)
+    both('ccr_loss', lambda a, b, f, c, d: A.ccr_loss((a, b, f), (c, d, f), 6),
+         logits, logits2, feat, logits2, logits)
+    both('mse_context_loss', lambda a, b, f, c, d: A.mse_context_loss((a, b, f), (c, d, f)),
+         logits, logits2, feat, logits2, logits)
+
+    model = build_deeplabv2(resnet, 6, generator=torch.Generator().manual_seed(0))
+    moved = {k: v + 0.01 for k, v in model.state_dict().items() if v.is_floating_point()}
+    names = [k for k, _ in model.named_parameters()]
+    cpu_state = EMA.ema_update(EMA.ema_register(model), {k: moved[k] for k in names}, 0.999)
+    card_state = EMA.ema_update(EMA.ema_register(model.to(device)),
+                                {k: moved[k].to(device) for k in names}, 0.999)
+    if not all(torch.equal(card_state.shadow[k].cpu(), cpu_state.shadow[k]) for k in names):
+        raise AssertionError('periphery ema: the card\'s shadow differs from the CPU\'s')
+    del model, moved, cpu_state, card_state
+
+    def module(name, build, *arrays, tol=PERIPHERY_TOL):
+        torch.manual_seed(0)
+        net = build()
+        card = build().to(device)
+        card.load_state_dict(net.state_dict())
+        both(name, lambda *xs: (card if xs[0].is_cuda else net)(*xs), *arrays, tol=tol)
+
+    tn_x = rng.normal(size=(16, feat_hw, feat_hw, width)).astype(np.float32)
+    module('TransNorm', lambda: TransNorm(width).train(), tn_x)
+    soft = np.asarray(torch.softmax(torch.from_numpy(
+        rng.normal(size=(8, size, size, 6)).astype(np.float32)), -1))
+    module('FCDiscriminator', lambda: FCDiscriminator(6), soft)
+    module('FCDiscriminatorLocal', lambda: FCDiscriminatorLocal(6 + width),
+           np.concatenate([soft[:, ::size // feat_hw, ::size // feat_hw], feat], -1))
+    module('PixelDiscriminator', lambda: PixelDiscriminator(6), soft[:, ::size // feat_hw, ::size // feat_hw])
+    x2 = rng.normal(size=(2, size, size, 3)).astype(np.float32)
+    module('DeeplabV2MMD', lambda: DeeplabV2MMD(
+        mmd, num_classes=6, inchannels=ResNet(mmd).out_channels).train(), x2, tol=DEEP_TOL)
+    module('SpixelNet', lambda: SpixelNet().train(), x2)
+    print(f'[periphery] on the card against the CPU (f32, TF32 off): the mixes and the EMA '
+          f'of ResNet-101\'s parameters equal; largest gaps '
+          + ', '.join(f'{k} {v:.3g}' for k, v in worst.items() if v)
+          + f' (limit {PERIPHERY_TOL}, DeeplabV2MMD {DEEP_TOL}); '
+          f'{time.perf_counter() - t0:.1f} s')
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description='Smoke test of regda_tpu_torch on one GPU.')
@@ -2837,7 +3367,20 @@ def main(argv=None) -> int:
     remat = phase_remat(device, bare)   # zeroes the count before each of its runs
     record['launches_stage2_remat'] = remat['stage2']
     record['launches_stage3_remat'] = remat['stage3']
-    for k in [k for k in bare if k.endswith('_bn')]:
+    parallel = phase_parallel(device, bare)   # zeroes the count before each of its runs
+    record['launches_parallel_stage2'] = parallel['stage2']
+    record['launches_parallel_stage3'] = parallel['stage3']
+    record['launches_parallel_global_bn'] = parallel['global_bn']
+    torch.cuda.empty_cache()
+    two = phase_parallel_two(bare)
+    if two is not None:
+        record['launches_two_ranks'] = two['launches']
+        from regda_tpu_torch.entry import dryrun_data_parallel
+        t0 = time.perf_counter()
+        dryrun_data_parallel(2, device, backend='gloo')     # raises if a rank fails
+        print(f'[parallel] dryrun_data_parallel(2) on cuda:0 over gloo: '
+              f'{time.perf_counter() - t0:.1f} s')
+    for k in [k for k in bare if k.endswith(('_bn', '_bn1', '_state', '_protos1'))]:
         del bare[k]
     torch.cuda.empty_cache()
 
@@ -2867,6 +3410,9 @@ def main(argv=None) -> int:
     for rec, key in ((ln_record, 'layernorm'), (attn_record, 'rel_attention'),
                      (tw_record, 'two_way'), (up_record, 'upscale')):
         rec['launches_regions'] = counts[key]
+    torch.cuda.empty_cache()
+    phase_data_mesh()
+    phase_periphery(device)
     torch.cuda.empty_cache()
 
     import tempfile

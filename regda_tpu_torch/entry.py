@@ -21,6 +21,11 @@ reference's everything-mode configuration and returns it with seeded tiles;
 its region maps run all of SAM's kernels, the stability counts and the mask
 statistics included.
 
+`dryrun_data_parallel(n)` is the counterpart of
+`__graft_entry__.dryrun_multichip` on the 'data' axis: n ranks run one
+stage-2 step on their rows of a global batch and are held to the
+one-process step on the whole batch.
+
 Every entry point runs on the card (`device='cuda'`) unless the caller names
 another device, and raises where no card is found: nothing moves to the CPU
 on its own.
@@ -28,6 +33,9 @@ on its own.
 
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
 import time
 from typing import Callable, Optional
 
@@ -38,6 +46,7 @@ from regda_tpu_torch.infer import SegInferencer
 from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.models.resnet import BatchNorm2d
 from regda_tpu_torch.models.sam.auto import Sam, SamRegionGenerator, build_point_grid
+from regda_tpu_torch.parallel.mesh import shard_batch
 from regda_tpu_torch.train import create_train_state, make_optimizer
 from regda_tpu_torch.train.steps import make_stage2_step, make_stage3_step
 
@@ -123,13 +132,15 @@ def synthetic_stage2_batch(rng: np.random.Generator, batch: int, size: int,
 
 
 def stage2_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0,
-                 remat: bool = False):
+                 remat: bool = False, ins_norm: bool = True, group=None):
     """A stage-2 train state from seeded random weights, with seeded normal
     prototypes standing in for a prototype checkpoint, and the stage-2 step
     (align_domain, refine_label and sam_refine on); `remat` checkpoints
-    every residual block of the encoder."""
+    every residual block of the encoder; `ins_norm` is the segmenter's
+    instance norm (the recipe's default); `group` (a parallel.DataGroup)
+    makes the step one rank's part of a data-parallel step."""
     device = _device(device)
-    model = build_deeplabv2(resnet, num_classes=6, remat=remat,
+    model = build_deeplabv2(resnet, num_classes=6, remat=remat, is_ins_norm=ins_norm,
                             generator=torch.Generator().manual_seed(seed))
     model = model.to(device, memory_format=torch.channels_last)
     protos = np.random.default_rng(seed).normal(
@@ -138,23 +149,24 @@ def stage2_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0,
         model, make_optimizer(model, 1e-2, stop_steps=6000),
         torch.Generator(device=device).manual_seed(seed), torch.from_numpy(protos))
     step = make_stage2_step(num_classes=6, align_domain=True,
-                            refine_label=True, sam_refine=True)
+                            refine_label=True, sam_refine=True, group=group)
     return state, step
 
 
 def stage2_steps(n: int, device='cuda', *, remat: bool = False,
-                 after_step: Optional[Callable] = None):
+                 after_step: Optional[Callable] = None, group=None):
     """Run `n` f32 stage-2 steps of ResNet-101 (see `stage2_state`) at the
     recipe's shape, 8 crops of 512^2 per domain (configs/st/regda/
     _experiment.py:35), on seeded synthetic batches. Returns (state, metrics
     per step, seconds per step); each step's time ends in a synchronize,
-    after which `after_step(i, state)` is called, outside the time."""
+    after which `after_step(i, state)` is called, outside the time. With
+    `group`, each rank runs its rows of the same global batches."""
     device = _device(device)
-    state, step = stage2_state(device, remat=remat)
+    state, step = stage2_state(device, remat=remat, group=group)
     rng = np.random.default_rng(1)
     metrics, seconds = [], []
     for _ in range(n):
-        batch_np = synthetic_stage2_batch(rng, 8, 512)
+        batch_np = shard_batch(group, *synthetic_stage2_batch(rng, 8, 512))
         images_s, label_s, images_t, regs_t = (torch.from_numpy(a).to(device)
                                                for a in batch_np)
         t0 = time.perf_counter()
@@ -182,7 +194,7 @@ def stage3_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0,
                  remat: bool = False, **step_kwargs):
     """A stage-3 train state as `stage2_state` builds one, and the stage-3
     step (refine_label and sam_refine on, lt='uvem'; `step_kwargs`
-    override)."""
+    override, `group` among them)."""
     state, _ = stage2_state(device, resnet=resnet, seed=seed, remat=remat)
     kwargs = dict(num_classes=6, refine_label=True, sam_refine=True, lt='uvem')
     kwargs.update(step_kwargs)
@@ -190,22 +202,23 @@ def stage3_state(device='cuda', *, resnet: str = 'ResNet101', seed: int = 0,
 
 
 def stage3_steps(n: int, device='cuda', *, remat: bool = False,
-                 after_step: Optional[Callable] = None):
+                 after_step: Optional[Callable] = None, group=None):
     """Run `n` f32 stage-3 steps of ResNet-101 (see `stage3_state`) at the
     recipe's shape, 8 crops of 512^2 per domain, on seeded synthetic
     batches: `synthetic_stage2_batch`'s images, labels and region maps (ids
     0..MAX_REGION_ID) and `synthetic_soft_labels`. Returns (state, metrics
     per step, seconds per step); each step's time ends in a synchronize,
-    after which `after_step(i, state)` is called, outside the time."""
+    after which `after_step(i, state)` is called, outside the time. With
+    `group`, each rank runs its rows of the same global batches."""
     device = _device(device)
-    state, step = stage3_state(device, remat=remat)
+    state, step = stage3_state(device, remat=remat, group=group)
     rng = np.random.default_rng(1)
     metrics, seconds = [], []
     for _ in range(n):
         images_s, label_s, images_t, regs_t = synthetic_stage2_batch(rng, 8, 512)
         soft = synthetic_soft_labels(rng, 8, 512)
-        batch = [torch.from_numpy(a).to(device)
-                 for a in (images_s, label_s, images_t, soft, regs_t)]
+        batch = [torch.from_numpy(a).to(device) for a in shard_batch(
+            group, images_s, label_s, images_t, soft, regs_t)]
         t0 = time.perf_counter()
         metrics.append(step(state, *batch))
         if device.type == 'cuda':
@@ -276,3 +289,89 @@ def sam_regions_entry(device='cuda', *, vit_config: str = 'vit_b', img_size: int
     rng = np.random.default_rng(seed)
     images = [rng.integers(0, 256, size=(tile, tile, 3), dtype=np.uint8) for _ in range(tiles)]
     return SamRegionGenerator(model, **kwargs), images
+
+
+# the JAX dry run's own tolerances (tests/sharded_stages_child.py): on the
+# card cuDNN sums a rank's rows in another order than the whole batch's
+DRYRUN_RTOL, DRYRUN_PROTO_ATOL = 1e-4, 1e-5
+# rows a domain a rank. With instance norm the PPM's pooled scale-1 BN
+# normalizes rounding noise, and on the card (two rows a rank) another order
+# of reduction moved the losses by up to 3e-4, past DRYRUN_RTOL; the dry run
+# builds the segmenter without instance norm and, for a margin, gives that
+# BN four values a channel on each rank
+DRYRUN_ROWS = 4
+
+
+def _dryrun_rank(rank: int, n: int, device: str, init_method: str,
+                 backend: Optional[str]) -> None:
+    """One rank of `dryrun_data_parallel`: the data-parallel stage-2 step on
+    its rows; rank 0 also runs the one-process step on the whole batch and
+    holds the two to each other."""
+    from regda_tpu_torch import parallel
+    from regda_tpu_torch.utils.tools import disable_tf32
+    torch.set_num_threads(max(1, min(2, torch.get_num_threads())))
+    disable_tf32()      # a spawned process starts with TF32 on
+    group = parallel.data_group(rank, n, device, init_method=init_method, backend=backend)
+    try:
+        size, batch = 32, DRYRUN_ROWS * n
+        batch_np = synthetic_stage2_batch(np.random.default_rng(1), batch, size)
+
+        def run(group):
+            state, step = stage2_state(group.device if group else device, resnet='resnet18',
+                                       ins_norm=False, group=group)
+            own = parallel.shard_batch(group, *batch_np)
+            dev = state.prototypes.device
+            metrics = step(state, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                                    for a in own))
+            return state, {k: float(v) for k, v in metrics.items()}
+
+        state, metrics = run(group)
+        parallel.assert_replicated(dict(state.model.state_dict(), prototypes=state.prototypes,
+                                        class_freq_s=state.class_freq_s.freq), group)
+        if rank == 0:
+            ref, want = run(None)
+            for k, v in want.items():
+                if not np.isclose(metrics[k], v, rtol=DRYRUN_RTOL, atol=0.0):
+                    raise AssertionError(f'dryrun_data_parallel({n}): {k} {metrics[k]} '
+                                         f'against the one-process step\'s {v}')
+            if not torch.allclose(state.prototypes, ref.prototypes, rtol=DRYRUN_RTOL,
+                                  atol=DRYRUN_PROTO_ATOL):
+                raise AssertionError(f'dryrun_data_parallel({n}): prototypes differ')
+            print(f'dryrun_data_parallel({n}): {group.size} ranks on {group.device} '
+                  f'loss={metrics["total"]:.4f} (one process {want["total"]:.4f}) OK',
+                  flush=True)
+    finally:
+        parallel.shutdown()
+
+
+def dryrun_data_parallel(n: int, device='cuda', *, backend: Optional[str] = None) -> None:
+    """Start `n` ranks (one process each; `backend` defaults to nccl on the
+    card, gloo on the CPU) that run one stage-2 step (LRH, CORAL, the
+    prototype contrastive loss, SGD) of DeepLabv2 / resnet18 without
+    instance norm at 32 px, four rows a domain a rank, and check it: losses
+    and prototypes equal to the one-process step on the whole batch (rtol
+    1e-4, prototypes atol 1e-5, as the JAX dry run holds its mesh), the
+    parameters, BN statistics, prototypes and class balance bit-identical
+    on every rank. Raises if a rank fails. On 'cuda', rank r runs on
+    cuda:{r} unless the backend is gloo, which lets every rank share
+    cuda:0 (`chip_smoke.py` phase 3b runs it so on one card)."""
+    import torch.multiprocessing as mp
+    if torch.device(device).type == 'cuda':
+        _device(device)
+        if backend == 'gloo':
+            device = 'cuda:0'
+    tmp = tempfile.mkdtemp(prefix='regda_dryrun_')
+    try:
+        init = 'file://' + os.path.join(tmp, 'rendezvous')
+        ctx = mp.get_context('spawn')
+        procs = [ctx.Process(target=_dryrun_rank, args=(r, n, device, init, backend))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join()
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            raise RuntimeError(f'dryrun_data_parallel({n}): ranks {failed} failed')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

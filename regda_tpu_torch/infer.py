@@ -11,7 +11,13 @@ The numpy methods keep the JAX package's contract, (B, H, W, 3) float32
 normalized images in and numpy out; `probs_tensor` and `multiscale_tensor`
 under them take and return tensors on the model's device. (The JAX
 inferencer's `compute_dtype`, which no caller sets, is the model's `dtype`
-here; its `mesh=` is not ported.)
+here.)
+
+`group` (a parallel.DataGroup) is the counterpart of the JAX inferencer's
+`mesh=`: each rank predicts its share of a batch (`parallel.share`; a short
+share padded with copies of the last image) and the rows are gathered, so
+that every rank returns the one-process result. The Trainer's evaluation
+and offline pseudo-labelling run through it.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from regda_tpu_torch.models.fused_eval import eval_forward
 from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
 from regda_tpu_torch.ops.slide import slide_inference
 from regda_tpu_torch.ops.tta import tta_apply
+from regda_tpu_torch.parallel.mesh import DataGroup, all_gather_rows, share
 
 # the most input pixels one model call takes (64 tiles of 512^2): a larger
 # batch of tiles or TTA variants runs as equal chunks below it, which bounds
@@ -40,7 +47,8 @@ MULTISCALE_SCALES = (0.75, 1.0, 1.25, 1.5, 1.75, 2.0)
 
 class SegInferencer:
     def __init__(self, model: DeeplabV2, num_classes: int, tile: int = 512,
-                 stride: int = 256, fold_bn: Optional[bool] = None):
+                 stride: int = 256, fold_bn: Optional[bool] = None,
+                 group: Optional[DataGroup] = None):
         """Serves `model` (a DeeplabV2 carrying its weights) on its device,
         computing in the model's `dtype`.
 
@@ -58,6 +66,7 @@ class SegInferencer:
         self.num_classes = num_classes
         self.tile = tile
         self.stride = stride
+        self.group = group
 
     def update_variables(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Load new (unfolded) weights, e.g. after a training interval;
@@ -73,10 +82,25 @@ class SegInferencer:
         return torch.cat([eval_forward(self.model, x[i:i + size], self.fused_ppm).float()
                           for i in range(0, n, size)])
 
+    def _sharded(self, fn, images: torch.Tensor) -> torch.Tensor:
+        """fn over this rank's rows of `images`, every rank's rows gathered
+        (fn(images) without a group)."""
+        group = self.group
+        if group is None:
+            return fn(images)
+        n = images.shape[0]
+        own, per = images[share(group, n)], -(-n // group.size)
+        if own.shape[0] < per:       # a short share pads: gathered rows are equal
+            own = torch.cat([own, images[-1:].expand(per - own.shape[0], *images.shape[1:])])
+        return all_gather_rows(fn(own), group)[:n]
+
     @torch.inference_mode()
     def probs_tensor(self, images: torch.Tensor, slide: bool = True,
                      tta: bool = False) -> torch.Tensor:
         """(B, H, W, 3) float32 on the model's device -> (B, H, W, C) float32."""
+        return self._sharded(lambda x: self._probs(x, slide, tta), images)
+
+    def _probs(self, images: torch.Tensor, slide: bool, tta: bool) -> torch.Tensor:
         if slide:
             return slide_inference(self._apply_probs, images, self.num_classes,
                                    self.tile, self.stride, tta)
@@ -92,12 +116,15 @@ class SegInferencer:
         """images: (B, H, W, 3) normalized float32 -> (B, H, W, C) probs."""
         return self.probs_tensor(self._to_device(images), slide, tta).cpu().numpy()
 
+    @torch.inference_mode()
     def predict_labels(self, images: np.ndarray, slide: bool = True,
                        tta: bool = False) -> np.ndarray:
         """images: (B, H, W, 3) normalized float32 -> (B, H, W) int32 class
         map, argmaxed on the device (only H * W bytes come back)."""
-        probs = self.probs_tensor(self._to_device(images), slide, tta)
-        return probs.argmax(-1).to(torch.uint8).cpu().numpy().astype(np.int32)
+        labels = self._sharded(
+            lambda x: self._probs(x, slide, tta).argmax(-1).to(torch.uint8),
+            self._to_device(images))
+        return labels.cpu().numpy().astype(np.int32)
 
     @torch.inference_mode()
     def multiscale_tensor(self, images: torch.Tensor, scales=MULTISCALE_SCALES,
@@ -106,6 +133,9 @@ class SegInferencer:
         and back), averaged: (B, H, W, 3) -> (B, H, W, C) float32 (reference
         regda/utils/tools.py:99-128). Each scale is one call of the model's
         own forward, as in the JAX package."""
+        return self._sharded(lambda x: self._multiscale(x, scales, tta), images)
+
+    def _multiscale(self, images: torch.Tensor, scales, tta: bool) -> torch.Tensor:
         h, w = images.shape[1:3]
         total = None
         for scale in scales:

@@ -31,19 +31,26 @@ class AdaptiveAvgPool(nn.Module):
 class Dropout2d(nn.Module):
     """Channel dropout (torch Dropout2d, Flax Dropout broadcast over H, W)
     drawing its mask from an explicit `torch.Generator`. Set `p` to 0 to
-    switch it off."""
+    switch it off. Inside a data-parallel step (`parallel.data_parallel`)
+    each rank draws the global batch's mask and keeps its own rows, so
+    that the ranks together draw what one process would."""
 
     def __init__(self, p: float = 0.1):
         super().__init__()
         self.p = p
+        self.data_group = None
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
+        group, b = self.data_group, x.shape[0]
+        rows = b if group is None else b * group.size
         mask = torch.bernoulli(
-            torch.full(x.shape[:2] + (1, 1), keep, device=x.device),
+            torch.full((rows, x.shape[1], 1, 1), keep, device=x.device),
             generator=generator)
+        if group is not None:
+            mask = mask[group.rank * b:(group.rank + 1) * b]
         return x * (mask / keep).to(x.dtype)
 
 

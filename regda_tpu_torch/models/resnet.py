@@ -30,7 +30,11 @@ Two layers carry the JAX package's semantics rather than torch's defaults:
   * `BatchNorm2d` updates its running variance with the *biased* batch
     variance at momentum 0.9 (Flax `BatchNorm(momentum=0.9)`), where
     `torch.nn.BatchNorm2d` uses the unbiased one. It has no
-    `num_batches_tracked`, as the Flax collection has none.
+    `num_batches_tracked`, as the Flax collection has none. Inside a
+    data-parallel step (`parallel.data_parallel`) it takes its batch
+    statistics over the global batch of every rank, as the JAX step under
+    GSPMD does (`_global_forward`); in a group of one rank those are the
+    rank's own, and the plain path (cuDNN's batch norm on the card) runs.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from regda_tpu_torch.parallel.mesh import all_reduce_sum
 
 RESNET_DEPTHS = {
     'resnet18': (2, 2, 2, 2),
@@ -74,11 +80,15 @@ class BatchNorm2d(nn.Module):
         self.register_buffer('running_var', torch.ones(num_features))
         # False while a checkpointed block recomputes its forward
         self.update_stats = True
+        # the DataGroup of a data-parallel step (parallel.data_parallel)
+        self.data_group = None
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.data_group is not None and self.data_group.size > 1:
+            return self._global_forward(x)
         if x.numel() == x.shape[1]:
             # one value per channel (a pooled PPM branch at batch 1):
             # F.batch_norm refuses it, Flax normalizes it to zero, so the
@@ -94,6 +104,29 @@ class BatchNorm2d(nn.Module):
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
             self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        return y
+
+    def _global_forward(self, x):
+        """Train mode over the global batch of `self.data_group`: the
+        per-channel sum, then the sum of squared deviations from the global
+        mean, each all-reduced (their backward all-reduces the statistics'
+        gradients); the biased variance, as above. With one value per
+        channel in the whole global batch the deviation is 0 and the
+        output is the bias, as in the one-process branch; a rank that holds
+        one value per channel of several normalizes by the global ones."""
+        group = self.data_group
+        c = x.shape[1]
+        xf = x.float()
+        n = xf.numel() // c * group.size
+        mean = all_reduce_sum(xf.sum(dim=(0, 2, 3)), group) / n
+        centred = xf - mean.view(1, c, 1, 1)
+        var = all_reduce_sum((centred * centred).sum(dim=(0, 2, 3)), group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (centred * scale.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)).to(x.dtype)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
         return y
 
 

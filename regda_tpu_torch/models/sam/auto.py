@@ -45,6 +45,7 @@ from regda_tpu_torch.ops.kernels.mask_stats import mask_stats_fused, unpack_bits
 from regda_tpu_torch.ops.kernels.stability import (stability_counts_blocked,
                                                    stability_counts_fused, unblock_masks)
 from regda_tpu_torch.ops.resize import _interp_matrix_half_pixel, resize_bilinear_half_pixel
+from regda_tpu_torch.parallel.mesh import DataGroup, all_gather_objects, share
 
 SAM_PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 SAM_PIXEL_STD = np.array([58.395, 57.12, 57.375], np.float32)
@@ -292,7 +293,9 @@ class SamAutomaticMaskGenerator:
     stability and selection; only the selected ones are interleaved),
     `budget_skip` (see `_decode_all`), `iou_gate` (prompts that fail
     `pred_iou_thresh` skip the mask head and the stability resize) and
-    `timing`. There is no switch that turns a kernel off.
+    `timing`. There is no switch that turns a kernel off. `group` (a
+    parallel.DataGroup) makes `SamRegionGenerator.generate_regions_batch`
+    split a batch of tiles over the ranks.
     """
 
     def __init__(self, model: Sam, points_per_side: int = 32,
@@ -306,8 +309,10 @@ class SamAutomaticMaskGenerator:
                  mask_budget: int = 256, compute_dtype: Optional[torch.dtype] = None,
                  stability_on_upscaled: Optional[bool] = None,
                  blocked_masks: bool = True, budget_skip: bool = True,
-                 iou_gate: bool = True, timing: bool = False):
+                 iou_gate: bool = True, timing: bool = False,
+                 group: Optional[DataGroup] = None):
         self.model = model.eval()
+        self.group = group
         self.device = next(model.parameters()).device
         self.points_per_side = points_per_side
         self.points_per_batch = points_per_batch
@@ -850,8 +855,19 @@ class SamRegionGenerator(SamAutomaticMaskGenerator):
                                area_threshold: int = 1024) -> 'list[np.ndarray]':
         """Region maps of a batch of same-sized tiles: ALL device work of
         every tile is queued before the first scalars are read, then NMS runs
-        per tile on the host and the paints are queued back to back."""
-        return self._phases23(*self._submit_batch(tiles, area_threshold))
+        per tile on the host and the paints are queued back to back.
+
+        With `group`, each rank makes the maps of its share of the tiles
+        (`parallel.share`; the counterpart of the JAX generator's `_phase1_sharded`:
+        every device encodes and decodes its own tiles) and the maps are
+        gathered, so that every rank returns all of them in order. A tile's
+        map does not depend on the other tiles of its batch (phase 1 runs
+        tile by tile), so the maps equal the one-process ones."""
+        if self.group is None:
+            return self._phases23(*self._submit_batch(tiles, area_threshold))
+        own = tiles[share(self.group, len(tiles))]
+        maps = self._phases23(*self._submit_batch(own, area_threshold)) if own else []
+        return [m for part in all_gather_objects(maps, self.group) for m in part]
 
     def generate_regions_stream(self, batches, area_threshold: int = 1024, depth: int = 3):
         """Pipelined region generation over an iterable of tile batches: up to
@@ -859,7 +875,13 @@ class SamRegionGenerator(SamAutomaticMaskGenerator):
         tail (scalar download, NMS, paint, canvas download) runs, so the
         device works on the next batch meanwhile. Yields one list of region
         maps per input batch, in order, each identical to
-        `generate_regions_batch`'s; depth changes scheduling only."""
+        `generate_regions_batch`'s; depth changes scheduling only. With a
+        group, each batch is split over the ranks (`generate_regions_batch`),
+        one batch at a time."""
+        if self.group is not None:
+            for tiles in batches:
+                yield self.generate_regions_batch(tiles, area_threshold)
+            return
         q = deque()
         for tiles in batches:
             q.append(self._submit_batch(tiles, area_threshold))

@@ -10,6 +10,12 @@ UPS and UVEM keep the reference's entropy of the soft label, -p log(p + 0):
 a probability of exactly 0 gives a NaN entropy, which is neither above nor
 at-or-below the threshold, so such a pixel keeps its loss in the sum but
 leaves the count that divides it. The port reproduces that.
+
+Every loss and state update takes `group`, a `parallel.DataGroup`: with
+one, the sums, counts, moments and order statistics are those of the
+global batch over the ranks, and every rank returns the same global loss
+(parallel/mesh.py says how its gradient comes out right); without one,
+nothing changes.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 
 from regda_tpu_torch.ops.labels import one_hot_ignore
 from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
+from regda_tpu_torch.parallel.mesh import DataGroup, all_gather_rows, all_reduce_sum, global_mean
 
 EPS = 1e-7
 
@@ -50,13 +57,14 @@ class ClassBalanceState:
 
 def class_balance_weights(state: ClassBalanceState, labels: torch.Tensor,
                           num_classes: int, ignore_label: int = -1,
-                          decay: float = 0.99, temperature: float = 2.0):
+                          decay: float = 0.99, temperature: float = 2.0,
+                          group: Optional[DataGroup] = None):
     """Per-pixel weights from the EMA class frequency, and the updated EMA
     (ClassBalance.get_class_weight_4pixel, balance.py:27-43)."""
     lb = labels.reshape(-1)
     onehot = one_hot_ignore(lb, num_classes, ignore_label)
-    local_cnt = (lb != ignore_label).sum().float()
-    class_freq = onehot.sum(dim=0) / (local_cnt + EPS)
+    local_cnt = all_reduce_sum((lb != ignore_label).sum().float(), group)
+    class_freq = all_reduce_sum(onehot.sum(dim=0), group) / (local_cnt + EPS)
     freq = (1.0 - decay) * class_freq + decay * state.freq
     prob = torch.softmax((1.0 - freq) / temperature, dim=0)
     prob = prob / (prob.amax() + EPS)
@@ -65,41 +73,46 @@ def class_balance_weights(state: ClassBalanceState, labels: torch.Tensor,
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_label: int = -1,
-                       pixel_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       pixel_weight: Optional[torch.Tensor] = None,
+                       group: Optional[DataGroup] = None) -> torch.Tensor:
     """Mean CE over all pixels, ignored ones counting 0 (balance.py:97-101)."""
     nll, _ = softmax_cross_entropy_ignore(logits, labels, ignore_label)
     if pixel_weight is not None:
         nll = nll * pixel_weight
-    return nll.mean()
+    return global_mean(nll, group)
 
 
 def ohem_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                             ignore_label: int = -1, thresh: float = 0.7,
-                            pixel_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            pixel_weight: Optional[torch.Tensor] = None,
+                            group: Optional[DataGroup] = None) -> torch.Tensor:
     """Online hard example mining CE (balance.py:104-133), as the JAX
     package computes it: keep the losses above -log(thresh), or, when fewer
     than n_valid // 5 are, every loss at or above the n_min-th largest;
-    the mean over the kept pixels."""
+    the mean over the kept pixels. With a group, n_valid, the count above
+    the threshold and the n_min-th largest loss are the global batch's:
+    every rank sorts the gathered losses of all ranks."""
     nll, valid = softmax_cross_entropy_ignore(logits, labels, ignore_label)
     if pixel_weight is not None:
         nll = nll * pixel_weight
     loss_thresh = -torch.log(torch.tensor(thresh, dtype=torch.float32))
-    n_min = valid.sum() // 5
-    sorted_desc = torch.sort(nll, descending=True).values
-    kth = sorted_desc[torch.clamp(n_min - 1, 0, nll.shape[0] - 1)]
+    n_min = all_reduce_sum(valid.sum(), group) // 5
+    every = all_gather_rows(nll, group)
+    sorted_desc = torch.sort(every, descending=True).values
+    kth = sorted_desc[torch.clamp(n_min - 1, 0, every.shape[0] - 1)]
     hard = nll > loss_thresh
-    keep = torch.where(hard.sum() >= n_min, hard, nll >= kth)
+    keep = torch.where(all_reduce_sum(hard.sum(), group) >= n_min, hard, nll >= kth)
     kept = torch.where(keep, nll, 0.0)
-    return kept.sum() / (keep.sum() + EPS)
+    return all_reduce_sum(kept.sum(), group) / (all_reduce_sum(keep.sum(), group) + EPS)
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
-               ignore_label: int = -1) -> torch.Tensor:
+               ignore_label: int = -1, group: Optional[DataGroup] = None) -> torch.Tensor:
     """balance.py:136-158: mean over all pixels of (1 - p_y)^gamma * CE,
     ignored pixels counting 0."""
     nll, _ = softmax_cross_entropy_ignore(logits, labels, ignore_label)
     pt = torch.exp(-nll)
-    return ((1.0 - pt) ** gamma * nll).mean()
+    return global_mean((1.0 - pt) ** gamma * nll, group)
 
 
 @dataclass
@@ -113,7 +126,8 @@ class GHMState:
 
 
 def ghm_loss(state: GHMState, logits: torch.Tensor, labels: torch.Tensor,
-             bins: int = 30, momentum: float = 0.99, ignore_label: int = -1):
+             bins: int = 30, momentum: float = 0.99, ignore_label: int = -1,
+             group: Optional[DataGroup] = None):
     """Gradient-harmonized CE (balance.py:161-215) -> (loss, new state).
 
     The histogram counts g = |p_y - 1| of the valid pixels by `histc`'s
@@ -135,14 +149,16 @@ def ghm_loss(state: GHMState, logits: torch.Tensor, labels: torch.Tensor,
             torch.tensor([1.0 + 1e-3], dtype=torch.float32, device=lg.device)])
         in_range = (gradient >= 0.0) & (gradient <= 1.0)
         idx = torch.clamp((gradient * bins).to(torch.int32), 0, bins - 1).long()
-        hist = torch.zeros(bins, dtype=torch.float32, device=lg.device).scatter_add_(
-            0, idx, in_range.float())
+        hist = all_reduce_sum(torch.zeros(
+            bins, dtype=torch.float32, device=lg.device).scatter_add_(0, idx, in_range.float()),
+            group)
         inds = torch.bucketize(gradient, edges, right=False)
         acc = momentum * state.acc_sum + (1.0 - momentum) * hist if momentum > 0 else hist
         w = torch.where((inds > 0) & (inds <= bins),
                         1.0 / acc[torch.clamp(inds - 1, 0, bins - 1)], 0.0)
     nll, _ = softmax_cross_entropy_ignore(logits, labels, ignore_label)
-    loss = (nll * w).sum() / (valid.sum() + EPS)
+    loss = (all_reduce_sum((nll * w).sum(), group)
+            / (all_reduce_sum(valid.sum(), group) + EPS))
     return loss, GHMState(acc)
 
 
@@ -153,7 +169,8 @@ def _soft_entropy(label_soft_flat: torch.Tensor) -> torch.Tensor:
 
 def ups_loss(logits: torch.Tensor, labels: torch.Tensor, label_soft: torch.Tensor,
              threshold: float = 0.7, ignore_label: int = -1,
-             pixel_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+             pixel_weight: Optional[torch.Tensor] = None,
+             group: Optional[DataGroup] = None) -> torch.Tensor:
     """Entropy-gated CE (balance.py:306-342); label_soft (B, H, W, C)
     probabilities."""
     nll, valid = softmax_cross_entropy_ignore(logits, labels, ignore_label)
@@ -161,8 +178,8 @@ def ups_loss(logits: torch.Tensor, labels: torch.Tensor, label_soft: torch.Tenso
     nll = torch.where(unc > threshold, 0.0, nll)
     if pixel_weight is not None:
         nll = nll * pixel_weight
-    valid_cnt = ((unc <= threshold) & valid).sum()
-    return nll.sum() / (valid_cnt + EPS)
+    valid_cnt = all_reduce_sum(((unc <= threshold) & valid).sum(), group)
+    return all_reduce_sum(nll.sum(), group) / (valid_cnt + EPS)
 
 
 def uvem_weight(uncertainty: torch.Tensor, m: float = 0.2, threshold: float = 0.7,
@@ -187,7 +204,8 @@ def uvem_weight(uncertainty: torch.Tensor, m: float = 0.2, threshold: float = 0.
 def uvem_loss(logits: torch.Tensor, labels: torch.Tensor, label_soft: torch.Tensor,
               m: float = 0.2, threshold: float = 0.7, gamma: float = 4.0,
               ignore_label: int = -1,
-              pixel_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+              pixel_weight: Optional[torch.Tensor] = None,
+              group: Optional[DataGroup] = None) -> torch.Tensor:
     """Uncertainty-based valuable example mining (balance.py:345-394)."""
     nll, valid = softmax_cross_entropy_ignore(logits, labels, ignore_label)
     unc = _soft_entropy(label_soft.reshape(-1, label_soft.shape[-1]))
@@ -195,13 +213,14 @@ def uvem_loss(logits: torch.Tensor, labels: torch.Tensor, label_soft: torch.Tens
     w = uvem_weight(unc, m, threshold, gamma)
     if pixel_weight is not None:
         w = w * pixel_weight
-    valid_cnt = ((unc <= threshold) & valid).sum()
-    return (w * nll).sum() / (valid_cnt + EPS)
+    valid_cnt = all_reduce_sum(((unc <= threshold) & valid).sum(), group)
+    return all_reduce_sum((w * nll).sum(), group) / (valid_cnt + EPS)
 
 
 def prototype_contrastive_loss(prototypes: torch.Tensor, feat: torch.Tensor,
                                labels: torch.Tensor, temperature: float = 8.0,
-                               ignore_label: int = -1) -> torch.Tensor:
+                               ignore_label: int = -1,
+                               group: Optional[DataGroup] = None) -> torch.Tensor:
     """CE over cosine logits to detached prototypes, mean over valid pixels
     (regda/loss.py:10-47). feat (N, K) or (B, H, W, K)."""
     feat = feat.reshape(-1, feat.shape[-1])
@@ -214,17 +233,30 @@ def prototype_contrastive_loss(prototypes: torch.Tensor, feat: torch.Tensor,
     safe = torch.where(valid, labels, 0).long()
     nll = -torch.gather(F.log_softmax(logits, dim=-1), 1, safe[:, None])[:, 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / (valid.sum() + EPS)
+    return all_reduce_sum(nll.sum(), group) / (all_reduce_sum(valid.sum(), group) + EPS)
+
+
+def _row_mean(x: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
+    """The mean of x's rows (1, K) over the global batch."""
+    if group is None:
+        return x.mean(dim=0, keepdim=True)
+    return all_reduce_sum(x.sum(dim=0, keepdim=True), group) / (x.shape[0] * group.size)
+
+
+def _covariance(x: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
+    """Unbiased (K, K) covariance of x's rows over the global batch."""
+    n = x.shape[0] * (1 if group is None else group.size)
+    xm = _row_mean(x, group) - x
+    return all_reduce_sum(xm.T @ xm, group) / (n - 1)
 
 
 def coral_loss(source: torch.Tensor, target: torch.Tensor,
-               is_sqrt: bool = False) -> torch.Tensor:
-    """Deep CORAL (regda/gast/coral.py:15-47). source/target (N, K)."""
+               is_sqrt: bool = False, group: Optional[DataGroup] = None) -> torch.Tensor:
+    """Deep CORAL (regda/gast/coral.py:15-47). source/target (N, K); with a
+    group, the global batch's covariances, each from its global mean."""
     d = source.shape[1]
-    xm = source.mean(dim=0, keepdim=True) - source
-    xc = (xm.T @ xm) / (source.shape[0] - 1)
-    xmt = target.mean(dim=0, keepdim=True) - target
-    xct = (xmt.T @ xmt) / (target.shape[0] - 1)
+    xc = _covariance(source, group)
+    xct = _covariance(target, group)
     loss = torch.sum((xc - xct) * (xc - xct))
     if is_sqrt:
         loss = torch.sqrt(loss)

@@ -10,6 +10,10 @@ of datasets/basedata.py), and a palette PNG of the selected hard labels
 under `<dir>_color`. With save_prob=False, the hard labels + 1 go to uint8
 PNGs instead. The probabilities stay on the inferencer's device until the
 resize and the selection are done; each batch comes back to the host once.
+With an inferencer that has a `group` (a data-parallel Trainer's), each rank
+predicts its share of every batch and the probabilities are gathered; the
+first rank writes every file, and the call returns on every rank once it
+has.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from regda_tpu_torch.datasets import get_meta
 from regda_tpu_torch.ops.pseudo import pseudo_selection
 from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
+from regda_tpu_torch.parallel.mesh import barrier, is_primary
 from regda_tpu_torch.utils.viz import VisualizeSegmm
 
 
@@ -31,6 +36,7 @@ def gener_target_pseudo(cfg, inferencer, pseudo_loader, save_pseudo_label_path,
                         size=None, ignore_label: int = -1, tta: bool = True,
                         logger=None):
     meta = get_meta(cfg.DATASETS)
+    group = inferencer.group
     size = tuple(size or meta.size)
     os.makedirs(save_pseudo_label_path, exist_ok=True)
     color_path = save_pseudo_label_path + '_color'
@@ -43,6 +49,8 @@ def gener_target_pseudo(cfg, inferencer, pseudo_loader, save_pseudo_label_path,
         probs = inferencer.probs_tensor(images.to(inferencer.device), slide=slide, tta=tta)
         if tuple(probs.shape[1:3]) != size:
             probs = resize_bilinear_align_corners(probs, size)
+        if not is_primary(group):
+            continue
         if save_prob:
             hard = (pseudo_selection(probs, cfg.CUTOFF_TOP, cfg.CUTOFF_LOW, ignore_label)
                     if cfg.SNAPSHOT_DIR is not None else None)
@@ -65,3 +73,4 @@ def gener_target_pseudo(cfg, inferencer, pseudo_loader, save_pseudo_label_path,
                     viz_op(pred, fname.replace('.tif', '.png'))
         if logger is not None and (i + 1) % 100 == 0:
             logger.info(f'pseudo generation: {i + 1} tiles done')
+    barrier(group)

@@ -16,6 +16,11 @@ config's SNAPSHOT_DIR + '/align', and the final prototypes to
 asks otherwise, and float32 stays float32 there: TF32 is switched off for
 cuDNN's convolutions and cuBLAS's matmuls, which would otherwise take it by
 default.
+
+Under `torchrun --nproc_per_node N -m regda_tpu_torch.tools.train_align_reg ...` the run is
+data-parallel over N ranks, one a card: `--device cuda` means
+`cuda:{LOCAL_RANK}`, the batch is split over the ranks (N must divide
+it), and the first rank logs and writes every file (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -30,14 +35,16 @@ import torch
 
 from regda_tpu_torch.datasets import InfiniteIterator, get_meta, make_loader
 from regda_tpu_torch.entry import _device
+from regda_tpu_torch.parallel import (barrier, broadcast_module, data_group_from_env,
+                                      is_primary, shutdown)
 from regda_tpu_torch.tools.train_src import build_model
 from regda_tpu_torch.train import create_train_state, make_optimizer
 from regda_tpu_torch.train.loop import Trainer
 from regda_tpu_torch.train.steps import make_stage2_step
 from regda_tpu_torch.utils.checkpoint import load_prototypes, save_prototypes
-from regda_tpu_torch.utils.tools import (default_seed, disable_tf32,
-                                         get_console_file_logger, import_config,
-                                         logging_args, logging_cfg, seed_all, str2bool)
+from regda_tpu_torch.utils.tools import (default_seed, disable_tf32, get_rank_logger,
+                                         import_config, logging_args, logging_cfg,
+                                         seed_all, str2bool)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,19 +74,21 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> types.SimpleNamespace:
     """Run stage 2; returns the trainer and the two loaders."""
     args = build_parser().parse_args(argv)
-    device = _device(args.device)
+    group = data_group_from_env(args.device)
+    device = group.device if group is not None else _device(args.device)
     disable_tf32()
     seed_all()
     time_from = time.time()
-    cfg = import_config(args.config_path, create=True, copy=True, postfix='/align')
-    logger = get_console_file_logger(name=args.config_path.split('.')[1],
-                                     logdir=cfg.SNAPSHOT_DIR)
+    cfg = import_config(args.config_path, create=True, copy=is_primary(group),
+                        postfix='/align')
+    logger = get_rank_logger(args.config_path.split('.')[1], cfg.SNAPSHOT_DIR, group)
     logging_args(args, logger)
     logging_cfg(cfg, logger)
 
     meta = get_meta(cfg.DATASETS)
     stop_steps = cfg.STAGE2_STEPS
     model = build_model(cfg, meta.num_classes, device, args.ckpt_model)
+    broadcast_module(model, group)
     optimizer = make_optimizer(model, cfg.LEARNING_RATE, stop_steps,
                                momentum=cfg.MOMENTUM, weight_decay=cfg.WEIGHT_DECAY,
                                power=cfg.POWER)
@@ -95,8 +104,8 @@ def main(argv=None) -> types.SimpleNamespace:
         sam_refine=bool(args.sam_refine), percent=args.percent, ls=args.ls,
         bcs=bool(args.bcs), class_temp=args.class_temp, pcl_temp=args.pcl_temp,
         num_classes=meta.num_classes, ignore_label=meta.ignore_label,
-        cutoff_top=cfg.CUTOFF_TOP, cutoff_low=cfg.CUTOFF_LOW)
-    trainer = Trainer(model, cfg, logger, state, step_fn)
+        cutoff_top=cfg.CUTOFF_TOP, cutoff_low=cfg.CUTOFF_LOW, group=group)
+    trainer = Trainer(model, cfg, logger, state, step_fn, group)
     start_iter = trainer.try_resume() if args.auto_resume else 0
 
     sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger)
@@ -125,11 +134,14 @@ def main(argv=None) -> types.SimpleNamespace:
 
     trainer.join_saver()
     # final prototypes for stage 3
-    save_prototypes(os.path.join(cfg.SNAPSHOT_DIR, 'prototypes_best'),
-                    trainer.state.prototypes)
+    if is_primary(group):
+        save_prototypes(os.path.join(cfg.SNAPSHOT_DIR, 'prototypes_best'),
+                        trainer.state.prototypes)
+    barrier(group)
     logger.info(f'>>>> Using {(time.time() - time_from) / 3600:.3f} hours.')
     return types.SimpleNamespace(trainer=trainer, source=sourceloader, target=targetloader)
 
 
 if __name__ == '__main__':
     main()
+    shutdown()

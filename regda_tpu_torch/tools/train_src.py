@@ -11,6 +11,11 @@ the reference's key names (train/loop.py). `--pretrained-ckpt` takes such a
 `.pth`. The run is on the card unless `--device cpu` asks otherwise, and
 float32 stays float32 there: TF32 is switched off for cuDNN's convolutions
 and cuBLAS's matmuls, which would otherwise take it by default.
+
+Under `torchrun --nproc_per_node N -m regda_tpu_torch.tools.train_src ...` the run is
+data-parallel over N ranks, one a card: `--device cuda` means
+`cuda:{LOCAL_RANK}`, the batch is split over the ranks (N must divide
+it), and the first rank logs and writes every file (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -25,14 +30,14 @@ import torch
 from regda_tpu_torch.datasets import InfiniteIterator, get_meta, make_loader
 from regda_tpu_torch.entry import _device
 from regda_tpu_torch.models import build_deeplabv2
+from regda_tpu_torch.parallel import broadcast_module, data_group_from_env, is_primary, shutdown
 from regda_tpu_torch.train import create_train_state, make_optimizer
 from regda_tpu_torch.train.loop import Trainer
 from regda_tpu_torch.train.steps import make_stage1_step
 from regda_tpu_torch.utils.checkpoint import load_checkpoint
 from regda_tpu_torch.utils.tools import (count_model_parameters, default_seed,
-                                         disable_tf32, get_console_file_logger,
-                                         import_config, logging_args, logging_cfg,
-                                         seed_all, str2bool)
+                                         disable_tf32, get_rank_logger, import_config,
+                                         logging_args, logging_cfg, seed_all, str2bool)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,19 +73,21 @@ def build_model(cfg, num_classes: int, device: torch.device, ckpt: str | None = 
 def main(argv=None) -> types.SimpleNamespace:
     """Run stage 1; returns the trainer and the two loaders."""
     args = build_parser().parse_args(argv)
-    device = _device(args.device)
+    group = data_group_from_env(args.device)
+    device = group.device if group is not None else _device(args.device)
     disable_tf32()
     seed_all()
     time_from = time.time()
-    cfg = import_config(args.config_path, create=True, copy=True, postfix='/src')
-    logger = get_console_file_logger(name=args.config_path.split('.')[1],
-                                     logdir=cfg.SNAPSHOT_DIR)
+    cfg = import_config(args.config_path, create=True, copy=is_primary(group),
+                        postfix='/src')
+    logger = get_rank_logger(args.config_path.split('.')[1], cfg.SNAPSHOT_DIR, group)
     logging_args(args, logger)
     logging_cfg(cfg, logger)
 
     meta = get_meta(cfg.DATASETS)
     stop_steps = cfg.STAGE1_STEPS
     model = build_model(cfg, meta.num_classes, device, args.pretrained_ckpt)
+    broadcast_module(model, group)
     if args.pretrained_ckpt:
         logger.info(f'loaded init from {args.pretrained_ckpt}')
     optimizer = make_optimizer(model, cfg.LEARNING_RATE, stop_steps,
@@ -93,8 +100,8 @@ def main(argv=None) -> types.SimpleNamespace:
     step_fn = make_stage1_step(align_domain=bool(args.align_domain), ls=args.ls,
                                bcs=bool(args.bcs), class_temp=args.class_temp,
                                num_classes=meta.num_classes,
-                               ignore_label=meta.ignore_label)
-    trainer = Trainer(model, cfg, logger, state, step_fn)
+                               ignore_label=meta.ignore_label, group=group)
+    trainer = Trainer(model, cfg, logger, state, step_fn, group)
     start_iter = trainer.try_resume() if args.auto_resume else 0
 
     sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger)
@@ -122,3 +129,4 @@ def main(argv=None) -> types.SimpleNamespace:
 
 if __name__ == '__main__':
     main()
+    shutdown()

@@ -16,6 +16,11 @@ config's SNAPSHOT_DIR + '/ssl'. The run is on the card unless `--device cpu`
 asks otherwise, and float32 stays float32 there: TF32 is switched off for
 cuDNN's convolutions and cuBLAS's matmuls, which would otherwise take it by
 default.
+
+Under `torchrun --nproc_per_node N -m regda_tpu_torch.tools.train_ssl_reg ...` the run is
+data-parallel over N ranks, one a card: `--device cuda` means
+`cuda:{LOCAL_RANK}`, the batch is split over the ranks (N must divide
+it), and the first rank logs and writes every file (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -31,15 +36,17 @@ import torch
 
 from regda_tpu_torch.datasets import DALoader, InfiniteIterator, get_meta, make_loader
 from regda_tpu_torch.entry import _device
+from regda_tpu_torch.parallel import (barrier, broadcast_module, data_group_from_env,
+                                      is_primary, shutdown)
 from regda_tpu_torch.pseudo import gener_target_pseudo
 from regda_tpu_torch.tools.train_src import build_model
 from regda_tpu_torch.train import create_train_state, make_optimizer
 from regda_tpu_torch.train.loop import Trainer
 from regda_tpu_torch.train.steps import make_stage3_step
 from regda_tpu_torch.utils.checkpoint import load_prototypes
-from regda_tpu_torch.utils.tools import (default_seed, disable_tf32,
-                                         get_console_file_logger, import_config,
-                                         logging_args, logging_cfg, seed_all, str2bool)
+from regda_tpu_torch.utils.tools import (default_seed, disable_tf32, get_rank_logger,
+                                         import_config, logging_args, logging_cfg,
+                                         seed_all, str2bool)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,21 +81,23 @@ def main(argv=None) -> types.SimpleNamespace:
     """Run stage 3; returns the trainer, the two training loaders and the
     pseudo-label directory (removed by the time this returns)."""
     args = build_parser().parse_args(argv)
-    device = _device(args.device)
+    group = data_group_from_env(args.device)
+    device = group.device if group is not None else _device(args.device)
     disable_tf32()
     seed_all()
     time_from = time.time()
-    cfg = import_config(args.config_path, create=True, copy=True, postfix='/ssl')
+    cfg = import_config(args.config_path, create=True, copy=is_primary(group),
+                        postfix='/ssl')
     save_pseudo_label_path = os.path.join(cfg.SNAPSHOT_DIR, 'pseudo_label')
     os.makedirs(save_pseudo_label_path, exist_ok=True)
-    logger = get_console_file_logger(name=args.config_path.split('.')[1],
-                                     logdir=cfg.SNAPSHOT_DIR)
+    logger = get_rank_logger(args.config_path.split('.')[1], cfg.SNAPSHOT_DIR, group)
     logging_args(args, logger)
     logging_cfg(cfg, logger)
 
     meta = get_meta(cfg.DATASETS)
     stop_steps = cfg.STAGE3_STEPS
     model = build_model(cfg, meta.num_classes, device, args.ckpt_model)
+    broadcast_module(model, group)
     optimizer = make_optimizer(model, cfg.LEARNING_RATE, stop_steps,
                                momentum=cfg.MOMENTUM, weight_decay=cfg.WEIGHT_DECAY,
                                power=cfg.POWER)
@@ -105,8 +114,8 @@ def main(argv=None) -> types.SimpleNamespace:
         bct=bool(args.bct), class_temp=args.class_temp, uvem_m=args.uvem_m,
         uvem_t=args.uvem_t, uvem_g=args.uvem_g, num_classes=meta.num_classes,
         ignore_label=meta.ignore_label, cutoff_top=cfg.CUTOFF_TOP,
-        cutoff_low=cfg.CUTOFF_LOW)
-    trainer = Trainer(model, cfg, logger, state, step_fn)
+        cutoff_low=cfg.CUTOFF_LOW, group=group)
+    trainer = Trainer(model, cfg, logger, state, step_fn, group)
     start_iter = trainer.try_resume() if args.auto_resume else 0
 
     # offline pseudo-labels from the stage-2 weights: the trainer's
@@ -146,7 +155,9 @@ def main(argv=None) -> types.SimpleNamespace:
 
     trainer.join_saver()
     logger.info(f'>>>> Using {(time.time() - time_from) / 3600:.3f} hours.')
-    shutil.rmtree(save_pseudo_label_path, ignore_errors=True)
+    barrier(group)             # every rank has read its last pseudo-labels
+    if is_primary(group):
+        shutil.rmtree(save_pseudo_label_path, ignore_errors=True)
     logger.info('removing pseudo labels')
     return types.SimpleNamespace(trainer=trainer, source=sourceloader, target=targetloader,
                                  pseudo_label=save_pseudo_label_path)
@@ -154,3 +165,4 @@ def main(argv=None) -> types.SimpleNamespace:
 
 if __name__ == '__main__':
     main()
+    shutdown()

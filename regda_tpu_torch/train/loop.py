@@ -1,5 +1,5 @@
 """Shared host-side training-loop plumbing of the stage CLIs (counterpart of
-regda_tpu/train/loop.py, on one device).
+regda_tpu/train/loop.py).
 
 Mirrors the reference loops' cadence (tools/train_src.py:108-166): loss log
 every 50 steps, evaluate + checkpoint every EVAL_EVERY, keep `_best` by
@@ -12,6 +12,18 @@ with its `.json` sidecar (the full train state and the best mIoU, for
 `--auto-resume`). They are written by a background thread from a host copy
 taken before training goes on, since the step updates the parameters in
 place; REGDA_SYNC_CKPT=1 writes them in the loop instead.
+
+With a `group` (parallel.DataGroup, one process per card under `torchrun`)
+the Trainer is one rank of a data-parallel run, the counterpart of the JAX
+Trainer's batch sharding over its devices: every rank reads the loader's
+whole global batch and uploads only its own rows, so N ranks step through
+exactly the one-process run's batches (the step functions take the same
+group); evaluation and pseudo-labelling go through the inferencer's group
+(each rank predicts its share of a batch and the results are gathered);
+only the first rank logs and writes checkpoints; `try_resume` reads the
+state on the first rank and broadcasts it. A world size that does not
+divide the batch is refused, where the JAX Trainer quietly uses
+the largest divisor of the batch that is at most its device count.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ import torch
 from regda_tpu_torch.datasets import get_meta
 from regda_tpu_torch.infer import SegInferencer
 from regda_tpu_torch.ops.losses import ClassBalanceState, GHMState
+from regda_tpu_torch.parallel.mesh import (DataGroup, broadcast_object, is_primary, rows,
+                                           shard_batch)
 from regda_tpu_torch.train.state import TrainState
 from regda_tpu_torch.utils.checkpoint import load_state_dict, save_state_dict, to_host
 from regda_tpu_torch.utils.convert import load_segmenter_state_dict
@@ -38,8 +52,10 @@ from regda_tpu_torch.utils.profiling import StepTimer, trace_window
 
 
 class Trainer:
-    def __init__(self, model, cfg, logger, state: TrainState, step_fn: Callable):
+    def __init__(self, model, cfg, logger, state: TrainState, step_fn: Callable,
+                 group: Optional[DataGroup] = None):
         self.model = model
+        self.group = group
         self.cfg = cfg
         self.logger = logger
         self.state = state
@@ -47,6 +63,7 @@ class Trainer:
         self.meta = get_meta(cfg.DATASETS)
         self.device = next(model.parameters()).device
         batch_size = cfg.SOURCE_DATA_CONFIG.get('batch_size', 1)
+        rows(group, batch_size)      # refuses a world size that does not divide it
         self.timer = StepTimer(items_per_step=batch_size)
         self.step_seconds: list[float] = []    # host clock of each run_step
         # profile 5 steps starting at REGDA_PROFILE_START (default 10) into
@@ -58,7 +75,8 @@ class Trainer:
         self._trace_ctx = None
         # evaluation serves a second instance of the model: an inferencer
         # over the training module itself could leave it in eval mode
-        self.inferencer = SegInferencer(copy.deepcopy(model), self.meta.num_classes)
+        self.inferencer = SegInferencer(copy.deepcopy(model), self.meta.num_classes,
+                                        group=group)
         self.eval_seconds: list[float] = []
         self.mIoU_max = 0.0
         self.iter_max = 0
@@ -75,7 +93,8 @@ class Trainer:
             self._trace_ctx = None
 
     def run_step(self, i_iter: int = -1, **arrays):
-        """One step on numpy `arrays`, passed to the step in keyword order."""
+        """One step on numpy `arrays` (the global batch), passed to the step
+        in keyword order; with a group, this rank's rows only."""
         if self._profile:
             if i_iter == self._profile_start:
                 self._trace_ctx = trace_window(
@@ -86,12 +105,15 @@ class Trainer:
                   and self._trace_ctx is not None):
                 self._close_trace()
         self.timer.start()
-        batch = [torch.from_numpy(a).to(self.device) for a in arrays.values()]
+        batch = [torch.from_numpy(a).to(self.device)
+                 for a in shard_batch(self.group, *arrays.values())]
         metrics = self.step_fn(self.state, *batch)
         self.step_seconds.append(self.timer.stop())
         return metrics
 
     def maybe_log(self, i_iter: int, metrics: dict, extra: str = ''):
+        if not is_primary(self.group):
+            return
         if i_iter == 0 or (i_iter + 1) % 50 == 0:
             parts = [f'iter={i_iter + 1}']
             parts += [f'{k}={float(v):.3f}' for k, v in metrics.items()]
@@ -137,10 +159,15 @@ class Trainer:
 
     def try_resume(self) -> int:
         """Restore the full train state if one exists in SNAPSHOT_DIR.
-        Returns the iteration to resume from (0 = fresh run)."""
-        if not os.path.exists(self._state_path):
+        Returns the iteration to resume from (0 = fresh run). With a group
+        the first rank reads the files and broadcasts what it read."""
+        found = None
+        if is_primary(self.group) and os.path.exists(self._state_path):
+            found = (load_state_dict(self._state_path), self._read_sidecar())
+        found = broadcast_object(found, self.group)
+        if found is None:
             return 0
-        saved = load_state_dict(self._state_path)
+        saved, meta = found
         st = self.state
         load_segmenter_state_dict(st.model, saved['model'])
         st.optimizer.load_state_dict(saved['optimizer'])
@@ -151,21 +178,28 @@ class Trainer:
         st.ghm = GHMState(saved['ghm'].to(self.device))
         st.generator.set_state(saved['generator'])
         st.step = int(saved['step'])
-        meta_path = self._state_path + '.json'
-        if os.path.exists(meta_path):
-            try:
-                with open(meta_path) as f:
-                    meta = json.load(f)
-                self.mIoU_max = float(meta.get('mIoU_max', 0.0))
-                self.iter_max = int(meta.get('iter_max', 0))
-            except (ValueError, OSError) as e:
-                self.logger.warning(
-                    f'auto-resume: unreadable sidecar {meta_path} ({e}); '
-                    'keeping mIoU_max=%.4f' % self.mIoU_max)
+        if meta is not None:
+            self.mIoU_max = float(meta.get('mIoU_max', 0.0))
+            self.iter_max = int(meta.get('iter_max', 0))
         self.logger.info(f'auto-resume: restored {self._state_path} at '
                          f'step {st.step} (best mIoU {self.mIoU_max:.4f} '
                          f'@ iter {self.iter_max})')
         return st.step
+
+    def _read_sidecar(self) -> Optional[dict]:
+        """The `_state.pth.json` sidecar, or None where it is missing or
+        unreadable (then the best mIoU is kept)."""
+        meta_path = self._state_path + '.json'
+        if not os.path.exists(meta_path):
+            return None
+        try:
+            with open(meta_path) as f:
+                return json.load(f)
+        except (ValueError, OSError) as e:
+            self.logger.warning(
+                f'auto-resume: unreadable sidecar {meta_path} ({e}); '
+                'keeping mIoU_max=%.4f' % self.mIoU_max)
+            return None
 
     def maybe_eval(self, i_iter: int, stop_steps: int,
                    eval_at_zero: bool = False) -> Optional[float]:
@@ -186,6 +220,8 @@ class Trainer:
         if improved:
             self.mIoU_max = mIoU_curr
             self.iter_max = i_iter + 1
+        if not is_primary(self.group):
+            return mIoU_curr       # the first rank writes the checkpoints
         self.logger.info(
             f'Best model in iter={self.iter_max}, best_mIoU={self.mIoU_max}.')
 

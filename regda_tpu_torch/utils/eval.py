@@ -17,6 +17,7 @@ import torch
 
 from regda_tpu_torch.datasets import DALoader, get_meta
 from regda_tpu_torch.infer import SegInferencer
+from regda_tpu_torch.parallel.mesh import is_primary
 from regda_tpu_torch.utils.checkpoint import load_state_dict
 from regda_tpu_torch.utils.convert import load_segmenter_state_dict
 from regda_tpu_torch.utils.metrics import PixelMetricIgnore
@@ -31,7 +32,14 @@ def evaluate(model, state_dict: Optional[Mapping[str, torch.Tensor]], cfg,
     """Evaluate `model` (a DeeplabV2 on the device to run on) with the
     weights `state_dict`, or, outside training, those of `ckpt_path`.
     With `inferencer` (one built once over a model of the same layout), the
-    weights go into it and `model` is not touched."""
+    weights go into it and `model` is not touched. An inferencer with a
+    `group` (a data-parallel Trainer's) predicts each rank's share of every
+    batch and gathers the labels, so every rank computes the whole
+    evaluation's table and mIoU; only the first rank logs it and writes
+    the visualisations."""
+    primary = inferencer is None or is_primary(inferencer.group)
+    if not primary:
+        logger = None
     meta = get_meta(cfg.DATASETS)
     ignore_labels = [0] if cfg.DATASETS == 'IsprsDA' else []
     os.makedirs(cfg.SNAPSHOT_DIR, exist_ok=True)
@@ -43,7 +51,7 @@ def evaluate(model, state_dict: Optional[Mapping[str, torch.Tensor]], cfg,
             count_model_parameters(state_dict, logger)
 
     viz_op = None
-    if save_viz and cfg.SNAPSHOT_DIR is not None and ckpt_path is not None:
+    if save_viz and primary and cfg.SNAPSHOT_DIR is not None and ckpt_path is not None:
         vis_dir = os.path.join(cfg.SNAPSHOT_DIR,
                                'vis-{}'.format(os.path.basename(ckpt_path)))
         viz_op = VisualizeSegmm(vis_dir, meta.palette)

@@ -71,6 +71,19 @@ def get_console_file_logger(name: str, level=logging.INFO,
     return logger
 
 
+def get_rank_logger(name: str, logdir: str, group=None) -> logging.Logger:
+    """The stage CLIs' logger: console and file on the first rank of a
+    data-parallel run (a parallel.DataGroup) or on its own; on the other
+    ranks warnings only, to the console."""
+    if group is None or group.rank == 0:
+        return get_console_file_logger(name, logdir=logdir)
+    logger = logging.getLogger(f'{name}.rank{group.rank}')
+    logger.setLevel(logging.WARNING)
+    if not logger.handlers:
+        logger.addHandler(logging.StreamHandler())
+    return logger
+
+
 def logging_args(args, logger):
     logger.info('>>>>>>>>>>>>>>>>>>>>> arguments logging begin:')
     for k, v in vars(args).items():

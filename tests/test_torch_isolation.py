@@ -32,6 +32,7 @@ import regda_tpu_torch.ops.slic, regda_tpu_torch.data_prep.tiling, regda_tpu_tor
 import regda_tpu_torch.data_prep.superpixels, regda_tpu_torch.tools.check_sam_stability
 import regda_tpu_torch.tools.convert_potsdam, regda_tpu_torch.tools.convert_potsdam_rgb
 import regda_tpu_torch.tools.convert_vaihingen, regda_tpu_torch.tools.remat_memory
+import regda_tpu_torch.utils.convert
 from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.ops.lrh import homogenize
 model = build_deeplabv2('resnet18', 6, generator=torch.Generator().manual_seed(0))
@@ -61,6 +62,41 @@ gen, tiles = regda_tpu_torch.entry.sam_regions_entry(
     points_per_side=2, points_per_batch=4, pred_iou_thresh=-1e9, stability_score_thresh=0.0)
 maps = gen.generate_regions_batch(tiles, area_threshold=4)
 assert len(maps) == 2 and maps[0].shape == (48, 48) and maps[0].dtype == np.int32
+import tempfile
+import regda_tpu_torch.parallel, regda_tpu_torch.parallel.mesh, regda_tpu_torch.ops.mix
+import regda_tpu_torch.ops.whiten, regda_tpu_torch.ops.losses_extra, regda_tpu_torch.ops.align_losses
+import regda_tpu_torch.utils.ema, regda_tpu_torch.models.transnorm
+import regda_tpu_torch.models.discriminators, regda_tpu_torch.models.deeplab_mmd
+import regda_tpu_torch.models.spixelnet
+from regda_tpu_torch.train.steps import make_stage2_step
+from regda_tpu_torch import parallel
+with tempfile.TemporaryDirectory() as tmp:
+    group = parallel.data_group(0, 1, 'cpu', init_method='file://' + tmp + '/rdv')
+    state, _ = regda_tpu_torch.entry.stage2_state('cpu', resnet='resnet18')
+    make_stage2_step(num_classes=6, group=group)(state, *(torch.from_numpy(a) for a in (
+        images_s, label_s, images_t, regs)))
+    parallel.assert_replicated({'prototypes': state.prototypes}, group)
+    parallel.shutdown()
+regda_tpu_torch.entry.dryrun_data_parallel(1, 'cpu')
+feats = torch.tensor([[2, 1, 3, 0], [5, 6, 7, 8], [1, 2, 3, 4], [2, 3, 4, 5], [0, 1, 0, 1],
+                      [5, 1, 3, 1]], dtype=torch.float32).reshape(1, 1, 6, 4)
+assert float(regda_tpu_torch.ops.whiten.class_ware_whitening(
+    feats, torch.tensor([1, 0, 0, 1, 0, 0]).reshape(1, 1, 6), [1, 2])) == 12.4375
+g = torch.Generator().manual_seed(0)
+mixed = regda_tpu_torch.ops.mix.cutmix(g, torch.rand(2, 8, 8, 3), torch.zeros(2, 8, 8),
+                                       torch.rand(2, 8, 8, 3), torch.ones(2, 8, 8))
+loss, _ = regda_tpu_torch.ops.losses_extra.gdp_loss(
+    regda_tpu_torch.ops.losses_extra.GDPState.create(), torch.randn(1, 4, 4, 3),
+    torch.zeros(1, 4, 4, dtype=torch.long))
+A = regda_tpu_torch.ops.align_losses
+assert torch.isfinite(A.class_align_loss(torch.randn(6, 8), torch.randn(6, 8)))
+ema = regda_tpu_torch.utils.ema.ema_register(torch.nn.Linear(2, 2))
+with torch.no_grad():
+    regda_tpu_torch.models.transnorm.TransNorm(4).train()(torch.randn(4, 3, 3, 4))
+    regda_tpu_torch.models.discriminators.FCDiscriminator(6, ndf=4)(torch.zeros(1, 32, 32, 6))
+    regda_tpu_torch.models.deeplab_mmd.DeeplabV2MMD('resnet18', inchannels=512).eval()(
+        torch.zeros(1, 32, 32, 3))
+    assert len(regda_tpu_torch.models.spixelnet.SpixelNet().eval()(torch.zeros(1, 32, 32, 3))) == 8
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'regda_tpu'))
 print('LOADED', bad)
