@@ -101,6 +101,17 @@ Phases (any failure raises, and the exit code is non-zero):
               probe), it says so and the phase goes on; any other fault
               fails. Then `dryrun_data_parallel(2, 'cuda', backend='gloo')`
               on the same two ranks.
+  3c. spatial `phase_spatial`: the mesh's 'spatial' axis, two gloo
+              ranks sharing the card on a (1 data x 2 spatial) group, 256 of
+              every image's 512 rows a rank: two stage-2 steps of ResNet-101
+              at the recipe's global batch (2 x 8 x 512^2, f32), their losses
+              within SPATIAL_RTOL of phase 3's plain steps, the state bit for
+              bit alike on both ranks, one histogram launch a step a rank;
+              ms/step and peak a rank beside the card's line; one more step
+              with every collective timed (the halos' and gathers' share);
+              the ResNet-101 eval forward at 128 px on the rows against the
+              whole images (SPATIAL_EVAL); then `dryrun_data_parallel(2,
+              'cuda', backend='gloo', n_spatial=2)`. Any fault fails.
               After phase 5, `phase_data_mesh`: `seg_everything --data-mesh
               2` (two processes on the card) over 8 tiles of 512^2 with ViT-B
               writes the one-process run's maps exactly.
@@ -193,7 +204,8 @@ Phases (any failure raises, and the exit code is non-zero):
               tiles decoded by PIL equal to their crops.
 Launch counts are zeroed just before phases 2-3, again just before phase
 3's stage-3 steps, just before each remat run and each of phase 3b's
-group runs (and in each of its two ranks), just before the encode of
+group runs (and in each of its two ranks), in each of phase 3c's two
+ranks just before its steps, just before the encode of
 phase 4, again just before its fast decode, again just before phase 5's
 batch call, again just before phase 6's stage-2 run and its stage-3 run,
 and just before phase 7's stability check, and read just after each.
@@ -209,7 +221,8 @@ kernels' JSON record, one for each of the JAX package's nine `pallas_call`s
 histogram's record carries its launches in phase 3's stage-2 steps
 (`launches`), in phase 3b's one-rank group (`launches_parallel_stage2`,
 `launches_parallel_stage3`) and on each of its two ranks
-(`launches_two_ranks`, where gloo ran), in phase 6's stage-2 and stage-3 CLI runs (`launches_stages`,
+(`launches_two_ranks`, where gloo ran) and on each rank of the spatial
+pair (`launches_spatial`), in phase 6's stage-2 and stage-3 CLI runs (`launches_stages`,
 `launches_stage3`), in phase 3's bare stage-3 steps
 (`launches_stage3_bare`) and in its remat steps (`launches_stage2_remat`,
 `launches_stage3_remat`); the SAM kernels' records carry their launches in
@@ -3125,6 +3138,176 @@ def phase_parallel_two(bare: dict, device: str = 'cuda:0') -> dict | None:
             'ms': [r['seconds'] * 1e3 for r in ranks]}
 
 
+# Phase 3c: the (1 data x 2 spatial) gloo pair on the card against phase 3's
+# plain steps of the whole images. The halo convolutions compute what the
+# padded ones do, but the BatchNorms, the instance norm's and the PPM pools'
+# sums add in other orders (phase 3b's two-rank step read 1.06e-6)
+SPATIAL_RTOL = 1e-4
+SPATIAL_EVAL = dict(batch=2, size=128, tol=dict(rtol=2e-4, atol=2e-5))
+
+
+@contextlib.contextmanager
+def _timed_collectives():
+    """While inside, every `torch.distributed.all_reduce` and every spatial
+    gather (`parallel.mesh._SpatialStack`: the halos and `gather_height`,
+    forward and backward) is timed, the card synchronized on both sides
+    of it: -> {'all_reduce': [calls, s], 'spatial': [calls, s]}."""
+    import torch
+    import torch.distributed as dist
+    from regda_tpu_torch.parallel import mesh
+    times = {'all_reduce': [0, 0.0], 'spatial': [0, 0.0]}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key][0] += 1
+            times[key][1] += time.perf_counter() - t0
+            return out
+        return call
+
+    plain = dist.all_reduce, mesh._SpatialStack.forward, mesh._SpatialStack.backward
+    dist.all_reduce = timed(plain[0], 'all_reduce')
+    mesh._SpatialStack.forward = staticmethod(timed(plain[1], 'spatial'))
+    mesh._SpatialStack.backward = staticmethod(timed(plain[2], 'spatial'))
+    try:
+        yield times
+    finally:
+        dist.all_reduce = plain[0]
+        mesh._SpatialStack.forward = staticmethod(plain[1])
+        mesh._SpatialStack.backward = staticmethod(plain[2])
+
+
+def _spatial_rank(rank: int, init: str, out: str, device: str) -> None:
+    """One rank of phase 3c on a (1 x 2) group over gloo, sharing the card:
+    `stage2_steps(2)` on its 256 rows of every image (the histogram's count
+    zeroed just before), the state checked bit for bit against the other
+    rank's, one more step with every collective timed, then the ResNet-101
+    eval forward at SPATIAL_EVAL's size on its rows (and, on rank 0, on
+    the whole images). Writes the results or the error to out/rank<r>.pt."""
+    import traceback
+    import numpy as np
+    import torch
+    from regda_tpu_torch import parallel
+    from regda_tpu_torch.entry import stage2_steps, synthetic_stage2_batch
+    from regda_tpu_torch.models import build_deeplabv2
+    from regda_tpu_torch.ops.kernels import segment_hist as sh
+    from regda_tpu_torch.train.steps import make_stage2_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {}
+    try:
+        group = parallel.data_group(rank, 2, device, init_method=init, backend='gloo',
+                                    n_spatial=2)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            sh.launches = 0
+            state, metrics, seconds = stage2_steps(2, device, group=group)
+            launches = sh.launches
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            parallel.assert_replicated(dict(state.model.state_dict(), prototypes=state.prototypes,
+                                            class_freq_s=state.class_freq_s.freq), group)
+            step = make_stage2_step(num_classes=6, align_domain=True, refine_label=True,
+                                    sam_refine=True, group=group)   # stage2_state's step
+            batch = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in parallel.shard_batch(
+                         group, *synthetic_stage2_batch(np.random.default_rng(2), 8, 512))]
+            with _timed_collectives() as times:
+                t0 = time.perf_counter()
+                step(state, *batch)
+                torch.cuda.synchronize()
+                timed_wall = time.perf_counter() - t0
+            del state, batch
+            torch.cuda.empty_cache()
+            model = build_deeplabv2('ResNet101', num_classes=6,
+                                    generator=torch.Generator().manual_seed(0))
+            model = model.to(device, memory_format=torch.channels_last).eval()
+            n, size = SPATIAL_EVAL['batch'], SPATIAL_EVAL['size']
+            x = np.random.default_rng(3).normal(size=(n, size, size, 3)).astype(np.float32)
+            (own,) = parallel.shard_batch(group, x)
+            with torch.no_grad(), parallel.data_parallel(model, group):
+                result['eval'] = model(torch.from_numpy(np.ascontiguousarray(own)).to(device)).cpu()
+            if rank == 0:
+                with torch.no_grad():
+                    result['eval_one'] = model(torch.from_numpy(x).to(device)).cpu()
+            result.update(metrics=[{k: float(v) for k, v in m.items()} for m in metrics],
+                          seconds=seconds, launches=launches, peak=peak, times=times,
+                          timed_wall=timed_wall)
+        finally:
+            parallel.shutdown()
+    except Exception:      # reported by the parent, which fails
+        result = dict(error=traceback.format_exc())
+    torch.save(result, f'{out}/rank{rank}.pt')
+
+
+def phase_spatial(bare: dict, card: str, device: str = 'cuda:0') -> dict:
+    """Phase 3c, the mesh's 'spatial' axis: two ranks sharing the card over
+    gloo on a (1 data x 2 spatial) group, each holding 256 of the 512 rows
+    of every image. Two stage-2 steps of ResNet-101 at the recipe's global
+    batch (2 x 8 x 512^2, f32, TF32 off): each step's losses within
+    SPATIAL_RTOL of phase 3's plain steps on the whole images, the state
+    bit for bit alike on both ranks, one histogram launch a step a rank;
+    ms/step (step 2) and peak a rank beside the card's line; one more step
+    with its collectives timed (the halos' and gathers' share); the
+    ResNet-101 eval forward at 128 px on the rows against the one on the
+    whole images (SPATIAL_EVAL's tolerance); then
+    `dryrun_data_parallel(2, 'cuda', backend='gloo', n_spatial=2)`. Any
+    fault of a rank fails. -> {'launches': per rank, 'ms': per rank}."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from regda_tpu_torch.entry import dryrun_data_parallel
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='regda_spatial_') as tmp:
+        init = f'tcp://127.0.0.1:{_free_port()}'
+        mp.spawn(_spatial_rank, args=(init, tmp, device), nprocs=2, join=True)
+        ranks = [torch.load(f'{tmp}/rank{r}.pt') for r in range(2)]
+    errors = [r['error'] for r in ranks if 'error' in r]
+    if errors:
+        raise AssertionError(f'the spatial pair on one card (gloo): a rank failed:\n{errors[0]}')
+    gaps = []
+    for r, res in enumerate(ranks):
+        if res['launches'] != 2:
+            raise AssertionError(f'spatial rank {r}: segment_hist launched {res["launches"]} '
+                                 f'times in two steps; expected one a step')
+        for i, (got, want) in enumerate(zip(res['metrics'], bare['stage2_metrics'])):
+            for k, v in want.items():
+                gap = abs(got[k] - v) / max(abs(v), 1e-12)
+                gaps.append(gap)
+                if not gap <= SPATIAL_RTOL:
+                    raise AssertionError(f'spatial rank {r} step {i + 1}: {k} {got[k]} against '
+                                         f'the one-process step\'s {v} (rtol {SPATIAL_RTOL:g})')
+    got = torch.cat([res['eval'] for res in ranks], dim=1)
+    want = ranks[0]['eval_one']
+    if got.shape != want.shape or not torch.allclose(got, want, **SPATIAL_EVAL['tol']):
+        raise AssertionError(f'spatial eval forward at {SPATIAL_EVAL["size"]} px: '
+                             f'{float((got - want).abs().max())} from the unsharded forward '
+                             f'({SPATIAL_EVAL["tol"]})')
+    eval_gap = float((got - want).abs().max())
+    ms = [res['seconds'][1] * 1e3 for res in ranks]
+    t = ranks[0]['times']
+    print(f'[spatial] (1 data x 2 spatial) over gloo on one card ({card}), stage 2 ResNet-101 '
+          f'f32 2x8x512^2, 256 rows a rank: step 2 {ms[0]:.1f} / {ms[1]:.1f} ms on ranks 0 / 1 '
+          f'(phase 3\'s plain step of the whole images {bare["stage2_ms"]:.1f}), peak '
+          f'{ranks[0]["peak"]:.2f} / {ranks[1]["peak"]:.2f} GiB a rank; losses of steps 1-2 '
+          f'within {max(gaps):.3g} of the one-process steps\' (relative); state bit-identical '
+          f'on the ranks; segment_hist launches {[res["launches"] for res in ranks]} in 2 steps '
+          f'a rank')
+    print(f'[spatial] one more step with every collective timed, synchronized (rank 0): '
+          f'{ranks[0]["timed_wall"] * 1e3:.1f} ms of wall; {t["spatial"][0]} halo and height '
+          f'gathers {t["spatial"][1] * 1e3:.1f} ms; {t["all_reduce"][0]} all-reduces in all '
+          f'(the gathers\' among them) {t["all_reduce"][1] * 1e3:.1f} ms')
+    print(f'[spatial] eval forward ResNet-101 f32 {SPATIAL_EVAL["batch"]}x{SPATIAL_EVAL["size"]}^2 '
+          f'on the rows against the whole images: largest gap {eval_gap:.3g}')
+    t0 = time.perf_counter()
+    dryrun_data_parallel(2, device, backend='gloo', n_spatial=2)     # raises if a rank fails
+    print(f'[spatial] dryrun_data_parallel(2, n_spatial=2) on cuda:0 over gloo: '
+          f'{time.perf_counter() - t0:.1f} s; phase 3c {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': [res['launches'] for res in ranks], 'ms': ms}
+
+
 def phase_data_mesh(device: str = 'cuda', model_type: str = 'vit_b', img_size: int = 1024,
                     n: int = 8, size: int = 512) -> None:
     """Phase 3b, SAM replicas: `seg_everything --data-mesh 2` (two processes
@@ -3380,6 +3563,8 @@ def main(argv=None) -> int:
         dryrun_data_parallel(2, device, backend='gloo')     # raises if a rank fails
         print(f'[parallel] dryrun_data_parallel(2) on cuda:0 over gloo: '
               f'{time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    record['launches_spatial'] = phase_spatial(bare, card)['launches']
     for k in [k for k in bare if k.endswith(('_bn', '_bn1', '_state', '_protos1'))]:
         del bare[k]
     torch.cuda.empty_cache()

@@ -21,10 +21,10 @@ reference's everything-mode configuration and returns it with seeded tiles;
 its region maps run all of SAM's kernels, the stability counts and the mask
 statistics included.
 
-`dryrun_data_parallel(n)` is the counterpart of
-`__graft_entry__.dryrun_multichip` on the 'data' axis: n ranks run one
-stage-2 step on their rows of a global batch and are held to the
-one-process step on the whole batch.
+`dryrun_data_parallel(n, n_spatial=k)` is the counterpart of
+`__graft_entry__.dryrun_multichip`: n ranks on an (n / k) x k mesh (the
+'data' axis alone at k = 1) run one stage-2 step on their part of a
+global batch and are held to the one-process step on the whole batch.
 
 Every entry point runs on the card (`device='cuda'`) unless the caller names
 another device, and raises where no card is found: nothing moves to the CPU
@@ -303,7 +303,7 @@ DRYRUN_ROWS = 4
 
 
 def _dryrun_rank(rank: int, n: int, device: str, init_method: str,
-                 backend: Optional[str]) -> None:
+                 backend: Optional[str], n_spatial: int = 1) -> None:
     """One rank of `dryrun_data_parallel`: the data-parallel stage-2 step on
     its rows; rank 0 also runs the one-process step on the whole batch and
     holds the two to each other."""
@@ -311,9 +311,10 @@ def _dryrun_rank(rank: int, n: int, device: str, init_method: str,
     from regda_tpu_torch.utils.tools import disable_tf32
     torch.set_num_threads(max(1, min(2, torch.get_num_threads())))
     disable_tf32()      # a spawned process starts with TF32 on
-    group = parallel.data_group(rank, n, device, init_method=init_method, backend=backend)
+    group = parallel.data_group(rank, n, device, init_method=init_method, backend=backend,
+                                n_spatial=n_spatial)
     try:
-        size, batch = 32, DRYRUN_ROWS * n
+        size, batch = 32, DRYRUN_ROWS * group.n_data
         batch_np = synthetic_stage2_batch(np.random.default_rng(1), batch, size)
 
         def run(group):
@@ -338,17 +339,21 @@ def _dryrun_rank(rank: int, n: int, device: str, init_method: str,
                                   atol=DRYRUN_PROTO_ATOL):
                 raise AssertionError(f'dryrun_data_parallel({n}): prototypes differ')
             print(f'dryrun_data_parallel({n}): {group.size} ranks on {group.device} '
-                  f'loss={metrics["total"]:.4f} (one process {want["total"]:.4f}) OK',
-                  flush=True)
+                  f'({group.n_data} data x {group.n_spatial} spatial) '
+                  f'loss={metrics["total"]:.4f} (one process {want["total"]:.4f}) OK', flush=True)
     finally:
         parallel.shutdown()
 
 
-def dryrun_data_parallel(n: int, device='cuda', *, backend: Optional[str] = None) -> None:
+def dryrun_data_parallel(n: int, device='cuda', *, backend: Optional[str] = None,
+                         n_spatial: int = 1) -> None:
     """Start `n` ranks (one process each; `backend` defaults to nccl on the
-    card, gloo on the CPU) that run one stage-2 step (LRH, CORAL, the
-    prototype contrastive loss, SGD) of DeepLabv2 / resnet18 without
-    instance norm at 32 px, four rows a domain a rank, and check it: losses
+    card, gloo on the CPU) on an (n / n_spatial) x n_spatial group that run
+    one stage-2 step (LRH, CORAL, the prototype contrastive loss, SGD) of
+    DeepLabv2 / resnet18 without instance norm at 32 px, four rows a domain
+    a data rank (each spatial rank 32 / n_spatial of their image rows;
+    `dryrun_data_parallel(4, n_spatial=2)` is `dryrun_multichip(4)`'s
+    2 x 2 mesh), and check it: losses
     and prototypes equal to the one-process step on the whole batch (rtol
     1e-4, prototypes atol 1e-5, as the JAX dry run holds its mesh), the
     parameters, BN statistics, prototypes and class balance bit-identical
@@ -364,7 +369,8 @@ def dryrun_data_parallel(n: int, device='cuda', *, backend: Optional[str] = None
     try:
         init = 'file://' + os.path.join(tmp, 'rendezvous')
         ctx = mp.get_context('spawn')
-        procs = [ctx.Process(target=_dryrun_rank, args=(r, n, device, init, backend))
+        procs = [ctx.Process(target=_dryrun_rank,
+                             args=(r, n, device, init, backend, n_spatial))
                  for r in range(n)]
         for p in procs:
             p.start()

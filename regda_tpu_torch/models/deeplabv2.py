@@ -18,6 +18,11 @@ their concatenation (one head: its upsampled softmax). Inside, the model permute
 
 `dtype` works as in the JAX package: parameters stay float32, and the
 forward computes in `dtype` (the input is cast at the model boundary).
+
+On the mesh's spatial axis (`parallel.data_parallel` with a group whose
+n_spatial > 1) the input and every output are this rank's block of the
+image rows: the instance norm sums over the spatial group, and the eval
+tail gathers the heads' logits to upsample the whole image's rows.
 """
 
 from __future__ import annotations
@@ -30,20 +35,29 @@ import torch.nn as nn
 
 from regda_tpu_torch.models.heads import ASPPClassifier, PPMBilinear
 from regda_tpu_torch.models.resnet import BASIC_BLOCK_TYPES, BatchNorm2d, ResNetEncoder
-from regda_tpu_torch.ops.resize import bilinear_nchw
+from regda_tpu_torch.ops.resize import resize_rows_nchw
+from regda_tpu_torch.parallel.mesh import DataGroup, check_height, spatial_sum
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                  group: Optional[DataGroup] = None) -> torch.Tensor:
     """InstanceNorm2d(affine=False) on NCHW, biased variance, in float32, by
     the JAX package's formula (x - mean) * rsqrt(var + eps). (`F.instance_norm`
     runs as a batch norm over B * C channels, whose kernels would blur the
     serve profile's check that folding left no batch-norm kernel.) The result
     is NCHW-contiguous, as `F.instance_norm`'s is: PyTorch's adaptive-pool
     kernel, which the heads run on it, is faster on that layout than on
-    channels-last."""
+    channels-last. On the spatial axis, x is a block of rows: the sum, then
+    the sum of squared deviations from the image's mean, each summed over
+    the spatial group (with the gradient)."""
     xf = x.to(torch.float32, memory_format=torch.contiguous_format)
-    var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    if group is None or not group.spatial:
+        var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
+        return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    n = xf.shape[2] * xf.shape[3] * group.n_spatial
+    centred = xf - spatial_sum(xf.sum(dim=(2, 3), keepdim=True), group) / n
+    var = spatial_sum((centred * centred).sum(dim=(2, 3), keepdim=True), group) / n
+    return (centred * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 class DeeplabV2(nn.Module):
@@ -63,6 +77,7 @@ class DeeplabV2(nn.Module):
         self.folded = folded
         self.dtype = dtype
         self.encoder = ResNetEncoder(resnet_type, folded, output_stride, remat)
+        self.data_group = None     # the instance norm's and the tail's (parallel.data_parallel)
 
         def head():
             if use_ppm:
@@ -85,7 +100,7 @@ class DeeplabV2(nn.Module):
         """x (B, H, W, 3) -> the encoder's NCHW map at the output stride in
         `dtype`, instance-normalized where the model says so."""
         feat = self.encoder(x.to(self.dtype).permute(0, 3, 1, 2))
-        return instance_norm(feat) if self.is_ins_norm else feat
+        return instance_norm(feat, group=self.data_group) if self.is_ins_norm else feat
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         """x (B, H, W, 3). Train: (pred1, pred2, feat) NHWC at the output
@@ -95,29 +110,35 @@ class DeeplabV2(nn.Module):
         if self.training and self.folded:
             raise RuntimeError('a folded DeeplabV2 is inference-only')
         hw = tuple(x.shape[1:3])
+        group = self.data_group
+        if group is not None and group.spatial:
+            check_height(group, hw[0] * group.n_spatial, self.output_stride)
         feat = self.features(x)
         if not self.multi_layer:
             x1 = self.cls_pred(feat, generator)
             if self.training:
                 return x1.permute(0, 2, 3, 1), feat.permute(0, 2, 3, 1)
-            x1 = bilinear_nchw(x1, hw, align_corners=True)
+            x1 = resize_rows_nchw(x1, hw, True, group)
             return torch.softmax(x1, dim=1).permute(0, 2, 3, 1)
         x1 = self.layer5(feat, generator)
         x2 = self.layer6(feat, generator)
         if self.training:
             return tuple(t.permute(0, 2, 3, 1) for t in (x1, x2, feat))
-        return dual_head_probs(x1, x2, hw)
+        return dual_head_probs(x1, x2, hw, group)
 
 
-def dual_head_probs(x1: torch.Tensor, x2: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+def dual_head_probs(x1: torch.Tensor, x2: torch.Tensor, hw: tuple[int, int],
+                    group: Optional[DataGroup] = None) -> torch.Tensor:
     """The eval tail of the two heads: one align-corners upsample of their
     NCHW logits' concatenation (resize is per channel, so this equals two
-    upsamples), then the mean of the per-head softmaxes, (B, H, W, C)."""
+    upsamples), then the mean of the per-head softmaxes, (B, H, W, C). On
+    the spatial axis `hw` is this rank's block: the (B, 2C, h, w) logits are
+    gathered over the spatial group and the rank's rows upsampled."""
     b, n = x1.shape[:2]
     both = torch.cat([x1, x2], dim=1).contiguous(memory_format=torch.channels_last)
     # channels-last in and out: the NHWC upsample kernel, and (B, H, W, 2, n)
     # softmaxes over contiguous rows; the sum of two values is their one add
-    both = bilinear_nchw(both, hw, align_corners=True).permute(0, 2, 3, 1)
+    both = resize_rows_nchw(both, hw, True, group).permute(0, 2, 3, 1)
     return torch.softmax(both.reshape(b, *hw, 2, n), dim=-1).sum(-2) / 2
 
 

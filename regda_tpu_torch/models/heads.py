@@ -6,6 +6,11 @@ Parameter names follow the reference: `ppm.<i>.1` (conv) and `ppm.<i>.2`
 (BN) per pool scale; `conv_last.0` (3x3 conv), `.1` (BN), `.4` (classifier
 conv with bias); `conv2d_list.<i>` for the ASPP branches. With
 `folded=True` the PPM's BNs are `FoldedBias`es (models/fold_bn.py).
+
+On the mesh's spatial axis (parallel/mesh.py) the PPM pools a rank's block
+of rows into the whole map's bins and sums the parts over the spatial
+group, so each rank holds the whole pooled maps; their upsample keeps
+the rank's rows. The 3x3 convs take their halos (models/resnet.py).
 """
 
 from __future__ import annotations
@@ -16,24 +21,26 @@ import torch
 import torch.nn as nn
 
 from regda_tpu_torch.models.resnet import Conv2d, conv_norm, norm_layer
-from regda_tpu_torch.ops.resize import adaptive_avg_pool_nchw, bilinear_nchw
+from regda_tpu_torch.ops.resize import adaptive_avg_pool_rows_nchw, resize_rows_nchw
 
 
 class AdaptiveAvgPool(nn.Module):
     def __init__(self, scale: int):
         super().__init__()
         self.scale = scale
+        self.data_group = None
 
     def forward(self, x):
-        return adaptive_avg_pool_nchw(x, (self.scale, self.scale))
+        return adaptive_avg_pool_rows_nchw(x, (self.scale, self.scale), self.data_group)
 
 
 class Dropout2d(nn.Module):
     """Channel dropout (torch Dropout2d, Flax Dropout broadcast over H, W)
     drawing its mask from an explicit `torch.Generator`. Set `p` to 0 to
     switch it off. Inside a data-parallel step (`parallel.data_parallel`)
-    each rank draws the global batch's mask and keeps its own rows, so
-    that the ranks together draw what one process would."""
+    each rank draws the global batch's mask and keeps the rows of its data
+    coordinate, so that the ranks together draw what one process would
+    and the ranks that hold the same images share their mask."""
 
     def __init__(self, p: float = 0.1):
         super().__init__()
@@ -45,12 +52,12 @@ class Dropout2d(nn.Module):
             return x
         keep = 1.0 - self.p
         group, b = self.data_group, x.shape[0]
-        rows = b if group is None else b * group.size
+        rows = b if group is None else b * group.n_data
         mask = torch.bernoulli(
             torch.full((rows, x.shape[1], 1, 1), keep, device=x.device),
             generator=generator)
         if group is not None:
-            mask = mask[group.rank * b:(group.rank + 1) * b]
+            mask = mask[group.data_rank * b:(group.data_rank + 1) * b]
         return x * (mask / keep).to(x.dtype)
 
 
@@ -64,6 +71,7 @@ class PPMBilinear(nn.Module):
             nn.Sequential(AdaptiveAvgPool(s), Conv2d(fc_dim, 512, 1, bias=False),
                           norm_layer(512, folded), nn.ReLU())
             for s in POOL_SCALES])
+        self.data_group = None     # the upsample's rows (parallel.data_parallel)
         self.conv_last = nn.ModuleList([
             Conv2d(fc_dim + len(POOL_SCALES) * 512, 512, 3, padding=1, bias=False),
             norm_layer(512, folded), nn.ReLU(), Dropout2d(0.1),
@@ -78,10 +86,11 @@ class PPMBilinear(nn.Module):
     def pools(self, x, pooled: Optional[list] = None) -> list:
         """The pyramid: each branch's pooled map (`self.pooled(x)`, or given
         by a head that pools the same map) through its conv, norm and ReLU,
-        upsampled back to x's size."""
+        upsampled back to x's size (on the spatial axis, x's rows of the
+        whole map's upsample)."""
         hw = tuple(x.shape[-2:])
         pooled = self.pooled(x) if pooled is None else pooled
-        return [bilinear_nchw(branch[1:](p), hw, align_corners=False)
+        return [resize_rows_nchw(branch[1:](p), hw, False, self.data_group, whole=True)
                 for branch, p in zip(self.ppm, pooled)]
 
     def forward(self, x, generator: Optional[torch.Generator] = None):

@@ -35,18 +35,28 @@ Two layers carry the JAX package's semantics rather than torch's defaults:
     statistics over the global batch of every rank, as the JAX step under
     GSPMD does (`_global_forward`); in a group of one rank those are the
     rank's own, and the plain path (cuDNN's batch norm on the card) runs.
+
+On the mesh's spatial axis (a rank holds a block of every image's rows)
+each convolution whose kernel is taller than one row, and the stem's max
+pool, take the rows they read above and below the block from the ranks
+that hold them (`parallel.halo_exchange`; zeros, or -inf for the pool,
+beyond the image's edge) and convolve with no padding in height. A block
+height that is a multiple of 16 (`parallel.check_height`) keeps each
+stride-2 layer's output rows the block of the one-process output's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from regda_tpu_torch.parallel.mesh import all_reduce_sum
+from regda_tpu_torch.parallel.mesh import DataGroup, all_reduce_sum, halo_exchange
 
 RESNET_DEPTHS = {
     'resnet18': (2, 2, 2, 2),
@@ -59,11 +69,31 @@ BASIC_BLOCK_TYPES = ('resnet18', 'resnet34')
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose float32 parameters are cast to the input's dtype."""
+    """nn.Conv2d whose float32 parameters are cast to the input's dtype;
+    on the spatial axis, with its halo rows (module docstring)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # the DataGroup of a parallel step (parallel.data_parallel)
+        self.data_group = None
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        x, padding = with_halo(self, x)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, padding,
+                        self.dilation, self.groups)
+
+
+def with_halo(conv: Conv2d, x: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+    """(x, the padding left to `conv`): on the spatial axis, x with the
+    rows above and below its block that a kernel taller than one row reads
+    (the padding in height, then what the kernel reaches below), and no
+    padding in height left; else x and the conv's own padding."""
+    group = conv.data_group
+    if group is None or not group.spatial or conv.kernel_size[0] == 1:
+        return x, conv.padding
+    pad, reach = conv.padding[0], conv.dilation[0] * (conv.kernel_size[0] - 1)
+    return halo_exchange(x, pad, reach - pad, group), (0, conv.padding[1])
 
 
 class BatchNorm2d(nn.Module):
@@ -171,7 +201,8 @@ def conv_norm(conv: Conv2d, norm: nn.Module, x, relu: bool, residual=None):
     """norm(conv(x)) (+ residual), then ReLU where asked. A folded norm's
     bias goes into the convolution (`conv_bias_act`)."""
     if isinstance(norm, FoldedBias):
-        return conv_bias_act(x, conv.weight, norm.bias, conv.stride, conv.padding,
+        x, padding = with_halo(conv, x)
+        return conv_bias_act(x, conv.weight, norm.bias, conv.stride, padding,
                              conv.dilation, relu, residual)
     y = norm(conv(x))
     if residual is not None:
@@ -254,6 +285,14 @@ def _checkpointed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
                       context_fn=lambda: (contextlib.nullcontext(), _stats_frozen(block)))
 
 
+def stem_pool(x: torch.Tensor, group: Optional[DataGroup] = None) -> torch.Tensor:
+    """The stem's 3x3/2 max pool with padding 1; on the spatial axis, over
+    x's block with a halo row above and below (-inf beyond the image)."""
+    if group is None or not group.spatial:
+        return F.max_pool2d(x, 3, 2, 1)
+    return F.max_pool2d(halo_exchange(x, 1, 1, group, -math.inf), 3, 2, (0, 1))
+
+
 class ResNet(nn.Module):
     """NCHW in, the last stage's (B, C, H/os, W/os) feature map out."""
 
@@ -263,6 +302,7 @@ class ResNet(nn.Module):
         plan = stage_plan(output_stride)
         block = BasicBlock if resnet_type in BASIC_BLOCK_TYPES else Bottleneck
         self.remat = remat
+        self.data_group = None     # the max pool's halo (parallel.data_parallel)
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = norm_layer(64, folded)
         in_ch, planes = 64, 64
@@ -280,8 +320,7 @@ class ResNet(nn.Module):
         self.out_channels = in_ch
 
     def forward(self, x):
-        x = conv_norm(self.conv1, self.bn1, x, relu=True)
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = stem_pool(conv_norm(self.conv1, self.bn1, x, relu=True), self.data_group)
         remat = self.remat and self.training and torch.is_grad_enabled()
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:

@@ -9,13 +9,23 @@ abstaining pixels and pixels of region 0 keep their own label.
 The histogram is the CUDA kernel `ops/kernels/segment_hist.py` on the card
 (its plain version on the CPU). Region ids outside [0, R) become region 0,
 which abstains, exactly as in the JAX package (lrh.py:39-47,76).
+
+On the mesh's spatial axis a rank holds a block of each image's rows: the
+kernel counts that block, the (B, R, C) counts are summed over the ranks
+that hold the image (an all-reduce of float32 whole numbers, exact below
+2**24 a bin), and each rank votes its own pixels from the image's
+histogram, which is the one-process histogram.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 
 from regda_tpu_torch.ops.kernels.segment_hist import segment_hist_labels
+from regda_tpu_torch.parallel.mesh import DataGroup
 
 # Static bound on SAM region ids per tile (id 0 = unassigned).
 MAX_REGIONS = 1024
@@ -42,8 +52,10 @@ def region_histogram(label_onehot: torch.Tensor, regions: torch.Tensor,
 def homogenize(pseudo_labels: torch.Tensor, regions: torch.Tensor,
                percent: float = 0.5, num_classes: int = 6,
                ignore_label: int = -1,
-               num_regions: int = MAX_REGIONS) -> torch.Tensor:
-    """pseudo_labels (B, H, W) int, regions (B, H, W) int -> (B, H, W) int32.
+               num_regions: int = MAX_REGIONS,
+               group: Optional[DataGroup] = None) -> torch.Tensor:
+    """pseudo_labels (B, H, W) int, regions (B, H, W) int -> (B, H, W) int32
+    (on the spatial axis, `group`, this rank's rows of both).
 
     The histogram counts labels in [0, C), which is exactly what the
     reference's `one_hot_ignore` keeps, so the label form of the kernel is
@@ -58,6 +70,8 @@ def homogenize(pseudo_labels: torch.Tensor, regions: torch.Tensor,
 
     hist = segment_hist_labels(labels_flat, regions_flat, num_regions,
                                num_classes)                            # (B,R,C)
+    if group is not None and group.spatial:
+        dist.all_reduce(hist, group=group.spatial_pg)
     pixel_cnt = hist.sum(dim=-1)                                       # (B,R)
     max_cnt = hist.amax(dim=-1)
     max_cls = torch.argmax(hist, dim=-1).to(torch.int32)

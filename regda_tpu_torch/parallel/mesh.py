@@ -1,5 +1,5 @@
-"""Data parallelism over processes: the 'data' axis of the JAX package's mesh
-(counterpart of regda_tpu/parallel/mesh.py).
+"""Data and spatial parallelism over processes: the ('data', 'spatial') mesh
+of the JAX package (counterpart of regda_tpu/parallel/mesh.py).
 
 The JAX package shards a batch over a ('data', 'spatial') device mesh and
 lets GSPMD place the collectives. The port runs one process per card,
@@ -7,12 +7,20 @@ launched by `torchrun` (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`), in a
 `torch.distributed` process group: `nccl` on the card, `gloo` on the CPU.
 A `DataGroup` names the group, this process's rank and its device.
 
-The rule every data-parallel step keeps is the JAX one: a step on N ranks
+The group is the 2-D mesh of `make_mesh`: `n_data` x `n_spatial` ranks,
+world rank r = d * n_spatial + s (the JAX mesh's device order). The ranks
+that share a data coordinate d hold the same images, each the s-th block
+of their rows (`height_rows`); `spatial_pg` is their process group and
+`data_pg` that of the ranks that share a spatial coordinate. `rank`,
+`size` and `pg` mean the whole world.
+
+The rule every parallel step keeps is the JAX one: a step on N ranks
 over a global batch equals the one-process step on that batch, up to the
 order of float reductions. So each quantity that the one-process step
 takes over the batch (BatchNorm statistics, loss means and counts, class
 frequencies, prototype sums, CORAL's moments, OHEM's k-th loss, GHM's
-histogram) is taken over the global batch:
+histogram) is taken over the global batch, and since every rank holds as
+many pixels, a sum over the world is one over the global batch:
   * every rank computes the same *global* loss from its rows, through
     `all_reduce_sum` on local sums, whose backward all-reduces the
     gradient in turn;
@@ -22,14 +30,22 @@ histogram) is taken over the global batch:
 Every rank then applies the same update to the same state, which stays
 replicated; `assert_replicated` checks that bit for bit.
 
-The 'spatial' axis (image height sharded, a halo exchange around every
-convolution) is not ported: ROADMAP queue 1 item 4 holds it. Asking for it
-raises.
+What the one-process step takes over one image's rows is taken over the
+spatial group: a convolution or pool that reads rows of its neighbours
+takes them by `halo_exchange`, a resize that reads the whole image by
+`gather_height`, the instance norm's and the PPM pools' sums by
+`spatial_sum`, and a per-image maximum by `all_reduce_max`. The first
+three keep the gradient convention above, since each is a sum over the
+spatial group of zero-padded parts (`_SpatialStack`): its backward sums
+the gradient over the group in turn and keeps this rank's part, so a
+halo row's gradient goes back to the rank that owns the row and adds to
+what that rank's own rows receive.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from dataclasses import dataclass
 from typing import Iterable, Mapping, Optional
@@ -37,17 +53,34 @@ from typing import Iterable, Mapping, Optional
 import torch
 import torch.distributed as dist
 
-SPATIAL_TODO = ("the 'spatial' mesh axis (H sharded with halo exchanges) is not "
-                "ported yet: ROADMAP.md queue 1 item 4, the spatial slice")
-
 
 @dataclass(frozen=True)
 class DataGroup:
-    """This process's place in a data-parallel process group."""
+    """This process's place in an (n_data x n_spatial) process group."""
     rank: int
     size: int
     device: torch.device
     pg: object = None     # the torch.distributed ProcessGroup (None: WORLD)
+    n_spatial: int = 1
+    spatial_pg: object = None    # the ranks that hold the same images
+    data_pg: object = None       # the ranks that hold the same rows of theirs
+
+    @property
+    def n_data(self) -> int:
+        return self.size // self.n_spatial
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.n_spatial
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.n_spatial
+
+    @property
+    def spatial(self) -> bool:
+        """True where image rows are split over more than one rank."""
+        return self.n_spatial > 1
 
 
 def _rank_device(device, local_rank: int) -> torch.device:
@@ -70,13 +103,15 @@ def data_group(rank: int, world_size: int, device='cuda', *,
                init_method: str = 'env://', local_rank: Optional[int] = None,
                backend: Optional[str] = None, n_spatial: int = 1) -> DataGroup:
     """Join (or, where this process has one, reuse) the default process
-    group as `rank` of `world_size` and return its DataGroup. `device`
+    group as `rank` of `world_size` and return its DataGroup, the
+    (world_size / n_spatial) x n_spatial mesh (module docstring). `device`
     'cuda' resolves to `cuda:{local_rank}` (default: `rank`); the backend
     is `nccl` on the card and `gloo` on the CPU unless `backend` names one
     (gloo also takes CUDA tensors, which lets two ranks share one card,
-    where NCCL refuses)."""
-    if n_spatial != 1:
-        raise NotImplementedError(SPATIAL_TODO)
+    where NCCL refuses). With n_spatial > 1 every rank creates the
+    spatial subgroups, then the data subgroups, in the same order."""
+    if n_spatial < 1 or world_size % n_spatial:
+        raise ValueError(f'n_spatial {n_spatial} does not divide the world size {world_size}')
     local_rank = rank if local_rank is None else local_rank
     device = _rank_device(device, local_rank)
     if backend is None:
@@ -87,7 +122,15 @@ def data_group(rank: int, world_size: int, device='cuda', *,
     elif (dist.get_rank(), dist.get_world_size()) != (rank, world_size):
         raise RuntimeError(f'this process is rank {dist.get_rank()} of '
                            f'{dist.get_world_size()}, not {rank} of {world_size}')
-    return DataGroup(rank, world_size, device, dist.group.WORLD)
+    if n_spatial == 1:
+        return DataGroup(rank, world_size, device, dist.group.WORLD)
+    n_data = world_size // n_spatial
+    spatial = [dist.new_group([d * n_spatial + s for s in range(n_spatial)])
+               for d in range(n_data)]
+    data = [dist.new_group([d * n_spatial + s for d in range(n_data)])
+            for s in range(n_spatial)]
+    return DataGroup(rank, world_size, device, dist.group.WORLD, n_spatial,
+                     spatial[rank // n_spatial], data[rank % n_spatial])
 
 
 def data_group_from_env(device='cuda', n_spatial: int = 1) -> Optional[DataGroup]:
@@ -95,8 +138,6 @@ def data_group_from_env(device='cuda', n_spatial: int = 1) -> Optional[DataGroup
     `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`), or None
     outside torchrun: the one-process run."""
     if 'WORLD_SIZE' not in os.environ:
-        if n_spatial != 1:
-            raise NotImplementedError(SPATIAL_TODO)
         return None
     return data_group(int(os.environ['RANK']), int(os.environ['WORLD_SIZE']), device,
                       local_rank=int(os.environ.get('LOCAL_RANK', os.environ['RANK'])),
@@ -116,16 +157,41 @@ def is_primary(group: Optional[DataGroup]) -> bool:
 
 # ------------------------------------------------------------------ sharding
 def rows(group: Optional[DataGroup], n: int) -> slice:
-    """This rank's rows of a global batch of `n`: contiguous blocks of n / N
-    rows in rank order. A world size that does not divide the batch is
-    refused (the JAX Trainer would quietly use fewer devices)."""
+    """This rank's rows of a global batch of `n`: contiguous blocks of
+    n / n_data rows in data-rank order. An n_data that does not divide the
+    batch is refused (the JAX Trainer would quietly use fewer devices)."""
     if group is None:
         return slice(0, n)
-    if n % group.size:
-        raise ValueError(f'world size {group.size} does not divide the global batch of '
+    if n % group.n_data:
+        axis = 'world size' if group.n_spatial == 1 else 'n_data'
+        raise ValueError(f'{axis} {group.n_data} does not divide the global batch of '
                          f'{n}: run with a world size that divides it')
-    b = n // group.size
-    return slice(group.rank * b, (group.rank + 1) * b)
+    b = n // group.n_data
+    return slice(group.data_rank * b, (group.data_rank + 1) * b)
+
+
+def check_height(group: Optional[DataGroup], h: int, output_stride: int = 16) -> None:
+    """Refuse an image height `h` that the spatial axis cannot split:
+    h % (n_spatial * max(16, output_stride)) must be 0, so that every
+    rank's block holds whole 16 x 16 label blocks and whole rows of the
+    output-stride map, and every stride-2 layer sees an even block."""
+    if group is None or not group.spatial:
+        return
+    unit = group.n_spatial * max(16, output_stride)
+    if h % unit:
+        raise ValueError(f'image height {h} does not split over {group.n_spatial} spatial '
+                         f'ranks: H % (n_spatial * max(16, output_stride)) must be 0, '
+                         f'here H % {unit} = {h % unit}')
+
+
+def height_rows(group: Optional[DataGroup], h: int, output_stride: int = 16) -> slice:
+    """This rank's block of the rows of an image of height `h`:
+    contiguous blocks of h / n_spatial rows in spatial-rank order."""
+    if group is None or not group.spatial:
+        return slice(0, h)
+    check_height(group, h, output_stride)
+    b = h // group.n_spatial
+    return slice(group.spatial_rank * b, (group.spatial_rank + 1) * b)
 
 
 def share(group: Optional[DataGroup], n: int) -> slice:
@@ -140,13 +206,17 @@ def share(group: Optional[DataGroup], n: int) -> slice:
 
 
 def shard_batch(group: Optional[DataGroup], *arrays):
-    """This rank's rows of each array (numpy or tensor) of a global batch."""
+    """This rank's part of each array (numpy or tensor) of a global batch:
+    its rows of the batch and, on the spatial axis, its block of the image
+    height (axis 1) of every array of rank >= 3 (images, labels, region
+    maps, soft labels), as the JAX `shard_batch(spatial=True)`."""
     if not arrays:
         return arrays
     sl = rows(group, len(arrays[0]))
     if any(len(a) != len(arrays[0]) for a in arrays):
         raise ValueError('the arrays of a batch differ in length')
-    return tuple(a[sl] for a in arrays)
+    return tuple(a[sl, height_rows(group, a.shape[1])] if a.ndim >= 3 else a[sl]
+                 for a in arrays)
 
 
 # --------------------------------------------------------------- collectives
@@ -180,6 +250,97 @@ def global_mean(x: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
     if group is None:
         return x.mean()
     return all_reduce_sum(x.sum(), group) / (x.numel() * group.size)
+
+
+class _SpatialStack(torch.autograd.Function):
+    """(n_spatial, *x.shape): every spatial rank's `x`, in spatial order, as
+    the sum over the spatial group of `x` placed in its slot of zeros (an
+    all-gather from the one collective that gloo and NCCL both take for
+    CUDA tensors). The backward is the same sum of the gradient, of which
+    this rank keeps its slot: the sum of what every rank's use of `x`
+    sends back."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        buf = x.new_zeros((group.n_spatial,) + tuple(x.shape))
+        buf[group.spatial_rank] = x
+        dist.all_reduce(buf, group=group.spatial_pg)
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group.spatial_pg)
+        return g[ctx.group.spatial_rank], None
+
+
+def spatial_sum(x: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
+    """The sum of `x` over the ranks that hold the same images (x itself
+    off the spatial axis); its backward all-reduces the gradient, as
+    `all_reduce_sum`'s."""
+    if group is None or not group.spatial:
+        return x
+    return _AllReduceSum.apply(x, group.spatial_pg)
+
+
+@torch.no_grad()
+def all_reduce_max(x: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
+    """The elementwise maximum of `x` over the ranks that hold the same
+    images, without a gradient (x itself off the spatial axis)."""
+    if group is None or not group.spatial:
+        return x
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group.spatial_pg)
+    return y
+
+
+def gather_height(x: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
+    """(B, C, h, W) rows of this rank -> (B, C, n_spatial * h, W): the whole
+    image height, gathered over the spatial group. Its backward sums the
+    gradient over the group and keeps this rank's rows."""
+    if group is None or not group.spatial:
+        return x
+    b, c, h, w = x.shape
+    every = _SpatialStack.apply(x.contiguous(), group)
+    return every.permute(1, 2, 0, 3, 4).reshape(b, c, group.n_spatial * h, w)
+
+
+@functools.lru_cache(maxsize=256)
+def _halo_index(h: int, n: int, s: int, top: int, bottom: int, mt: int, mb: int,
+                device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where the rows of spatial rank s's halos lie in the gathered slabs:
+    slab r holds rank r's last `mt` rows, then its first `mb`; index
+    n * (mt + mb) is the fill row beyond the image's edge. A halo deeper
+    than a block reads the slabs of several ranks."""
+    m, fill = mt + mb, n * (mt + mb)
+    above = [fill if g < 0 else (g // h) * m + g % h - (h - mt)
+             for g in range(s * h - top, s * h)]
+    below = [fill if g >= n * h else (g // h) * m + mt + g % h
+             for g in range((s + 1) * h, (s + 1) * h + bottom)]
+    return (torch.tensor(above, dtype=torch.long, device=device),
+            torch.tensor(below, dtype=torch.long, device=device))
+
+
+def halo_exchange(x: torch.Tensor, top: int, bottom: int, group: Optional[DataGroup],
+                  fill: float = 0.0) -> torch.Tensor:
+    """On the spatial axis, (B, C, h, W) rows of this rank -> (B, C, top + h
+    + bottom, W): x with the `top` image rows above its block and the
+    `bottom` rows below it, `fill` beyond the image's edge (0 for a
+    convolution's zero padding, -inf for a max pool's). Every rank's
+    boundary rows are gathered over the spatial group, so a halo deeper
+    than the neighbour's block comes from the ranks beyond it. The
+    backward sends each halo row's gradient to the rank that owns the row,
+    which adds it to its own."""
+    b, c, h, w = x.shape
+    n, s = group.n_spatial, group.spatial_rank
+    mt, mb = min(top, h), min(bottom, h)
+    slab = torch.cat([x[:, :, h - mt:], x[:, :, :mb]], dim=2)
+    every = _SpatialStack.apply(slab.contiguous(), group)        # (n, B, C, mt + mb, W)
+    flat = torch.cat([every.permute(1, 2, 0, 3, 4).reshape(b, c, n * (mt + mb), w),
+                      x.new_full((b, c, 1, w), fill)], dim=2)
+    above, below = _halo_index(h, n, s, top, bottom, mt, mb, x.device)
+    return torch.cat([flat.index_select(2, above), x, flat.index_select(2, below)], dim=2)
 
 
 def all_gather_rows(x: torch.Tensor, group: Optional[DataGroup]) -> torch.Tensor:
@@ -273,8 +434,10 @@ def barrier(group: Optional[DataGroup]) -> None:
 @contextlib.contextmanager
 def data_parallel(model: torch.nn.Module, group: Optional[DataGroup]):
     """While inside, every module of `model` with a `data_group` attribute
-    (the BatchNorms and the head dropouts) works on the global batch of
-    `group`; without a group, nothing changes."""
+    works on the global batch of `group`: the BatchNorms and the head
+    dropouts, and on the spatial axis the convolutions and the max pool
+    (halos), the PPM pools, the instance norm and the resizes of the
+    segmenter; without a group, nothing changes."""
     if group is None:
         yield
         return

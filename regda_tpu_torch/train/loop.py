@@ -63,6 +63,9 @@ class Trainer:
         self.meta = get_meta(cfg.DATASETS)
         self.device = next(model.parameters()).device
         batch_size = cfg.SOURCE_DATA_CONFIG.get('batch_size', 1)
+        if group is not None and group.spatial:
+            raise ValueError('the Trainer runs on the data axis only (n_spatial 1), as the '
+                             'JAX Trainer pins it; the stage steps take a spatial group')
         rows(group, batch_size)      # refuses a world size that does not divide it
         self.timer = StepTimer(items_per_step=batch_size)
         self.step_seconds: list[float] = []    # host clock of each run_step

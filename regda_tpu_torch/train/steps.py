@@ -22,7 +22,12 @@ global batch. The BatchNorms, the head dropout, the losses, the class
 balance, the prototypes and the GHM histogram work on the global batch,
 the gradients are averaged over the ranks before the update, and the
 metrics are the global losses, so that the step equals the one-process
-step on the global batch (parallel/mesh.py). Without a group nothing
+step on the global batch (parallel/mesh.py). On the group's spatial axis
+the images, labels, region maps and soft labels are this rank's block of
+rows: the segmenter exchanges its halos, each resize of the stride-16
+maps to the labels' size takes the whole image's rows (`resize_rows`), and
+the pseudo-label selection and LRH take their per-image maxima and
+histograms over the ranks that hold the image. Without a group nothing
 changes.
 """
 
@@ -34,11 +39,11 @@ import torch
 
 from regda_tpu_torch.ops import losses as L
 from regda_tpu_torch.ops.labels import downscale_label, one_hot_ignore
-from regda_tpu_torch.ops.lrh import homogenize
+from regda_tpu_torch.ops.lrh import MAX_REGIONS, homogenize
 from regda_tpu_torch.ops.prototypes import prototype_accumulate, prototype_update
 from regda_tpu_torch.ops.pseudo import pseudo_selection
 from regda_tpu_torch.ops.refine import label_refine
-from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
+from regda_tpu_torch.ops.resize import resize_rows
 from regda_tpu_torch.parallel.mesh import DataGroup, average_gradients, data_parallel
 from regda_tpu_torch.train.state import TrainState
 
@@ -62,7 +67,7 @@ def _source_loss(ls: str, bcs: bool, num_classes: int, class_temp: float,
         hw = tuple(labels.shape[-2:])
         total = 0.0
         for p in preds:
-            p = resize_bilinear_align_corners(p, hw)
+            p = resize_rows(p, hw, group)
             w = None
             if bcs:
                 w, cb_state = L.class_balance_weights(
@@ -169,18 +174,18 @@ def make_stage2_step(*, align_domain: bool = True,
         p_t1, p_t2, feat_t = model(images_t, state.generator)
         with torch.no_grad():
             hw = tuple(images_t.shape[1:3])
-            x1 = resize_bilinear_align_corners(p_t1.detach(), hw)
-            x2 = resize_bilinear_align_corners(p_t2.detach(), hw)
+            x1 = resize_rows(p_t1.detach(), hw, group)
+            x2 = resize_rows(p_t2.detach(), hw, group)
             label_t_soft = (torch.softmax(x1, -1) + torch.softmax(x2, -1)) * 0.5
             if refine_label:
                 label_t_soft = label_refine(
                     feat_t.detach(), [p_t1.detach(), p_t2.detach()],
-                    label_t_soft, protos, mode=refine_mode, temp=refine_temp)
+                    label_t_soft, protos, mode=refine_mode, temp=refine_temp, group=group)
             label_t_hard = pseudo_selection(label_t_soft, cutoff_top,
-                                            cutoff_low, ignore_label)
+                                            cutoff_low, ignore_label, group)
             if sam_refine:
-                label_t_hard = homogenize(label_t_hard, regs_t, percent,
-                                          num_classes, ignore_label)
+                label_t_hard = homogenize(label_t_hard, regs_t, percent, num_classes,
+                                          ignore_label, MAX_REGIONS, group)
             label_t = downscale_label(label_t_hard, 16, num_classes, ignore_label)
 
         loss_seg, cb_state = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
@@ -233,7 +238,7 @@ def make_stage3_step(*, refine_label: bool = True, refine_mode: str = 'all',
         hw = tuple(label_hard.shape[-2:])
         total = 0.0
         for p in preds:
-            p = resize_bilinear_align_corners(p, hw)
+            p = resize_rows(p, hw, group)
             w = None
             if bct and lt in ('ours', 'uvem', 'ups', 'ohem', 'none', 'ce'):
                 w, cb_state = L.class_balance_weights(
@@ -273,12 +278,13 @@ def make_stage3_step(*, refine_label: bool = True, refine_mode: str = 'all',
                 # the prototypes from before this step's EMA update
                 label_t_soft = label_refine(
                     feat_t.detach(), [p_t1.detach(), p_t2.detach()],
-                    label_t_soft, state.prototypes, mode=refine_mode, temp=refine_temp)
+                    label_t_soft, state.prototypes, mode=refine_mode, temp=refine_temp,
+                    group=group)
             label_t_hard = pseudo_selection(label_t_soft, cutoff_top, cutoff_low,
-                                            ignore_label)
+                                            ignore_label, group)
             if sam_refine:
-                label_t_hard = homogenize(label_t_hard, regs_t, percent,
-                                          num_classes, ignore_label)
+                label_t_hard = homogenize(label_t_hard, regs_t, percent, num_classes,
+                                          ignore_label, MAX_REGIONS, group)
             label_s_down = downscale_label(label_s, 16, num_classes, ignore_label)
             oh_s = one_hot_ignore(label_s_down.reshape(-1), num_classes, ignore_label)
             protos = prototype_update(state.prototypes, _flat(feat_s.detach()),

@@ -71,7 +71,6 @@ from regda_tpu.train.steps import make_stage2_step as jax_stage2
 from regda_tpu.utils.torch_convert import torch_state_dict_to_variables
 from regda_tpu_torch import parallel
 from regda_tpu_torch.entry import synthetic_stage2_batch
-from regda_tpu_torch.parallel.mesh import SPATIAL_TODO
 from regda_tpu_torch.utils.convert import from_jax_variables
 from tests.torch_parallel_child import ATOL, CASES, JAX_CASE, RTOL, STATS_ATOL, STATS_RTOL
 
@@ -224,14 +223,6 @@ def test_a_world_size_that_does_not_divide_the_batch_is_refused():
     assert parallel.rows(group, 6) == slice(2, 4)
     with pytest.raises(ValueError, match='does not divide the global batch of 4'):
         parallel.shard_batch(group, np.zeros((4, 2)))
-
-
-def test_the_spatial_axis_raises_and_names_its_roadmap_item():
-    assert 'ROADMAP.md queue 1 item 4' in SPATIAL_TODO
-    with pytest.raises(NotImplementedError, match='spatial'):
-        parallel.data_group(0, 1, 'cpu', n_spatial=2)
-    with pytest.raises(NotImplementedError, match='spatial'):
-        parallel.data_group_from_env('cpu', n_spatial=2)
 
 
 def test_without_torchrun_there_is_no_group(monkeypatch):

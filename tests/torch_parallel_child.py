@@ -59,10 +59,10 @@ CASES = {
 JAX_CASE = dict(batch=2, size=64, lr=1e-2, stop=10)    # tests/test_torch_step.py
 
 
-def build_state(case: str):
+def build_state(case: str, cases: dict = CASES):
     from regda_tpu_torch.models import build_deeplabv2
     from regda_tpu_torch.train import create_train_state, make_optimizer
-    _, _, _, scale, ins_norm, _ = CASES[case]
+    _, _, _, scale, ins_norm, _ = cases[case]
     model = build_deeplabv2('resnet18', C, is_ins_norm=ins_norm,
                             generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -77,18 +77,18 @@ def build_state(case: str):
                               torch.Generator().manual_seed(3), torch.from_numpy(protos))
 
 
-def make_step(case: str, group):
+def make_step(case: str, group, cases: dict = CASES):
     from regda_tpu_torch.train.steps import (make_stage1_step, make_stage2_step,
                                              make_stage3_step)
-    stage, _, _, _, _, kw = CASES[case]
+    stage, _, _, _, _, kw = cases[case]
     make = {1: make_stage1_step, 2: make_stage2_step, 3: make_stage3_step}[stage]
     return make(num_classes=C, group=group, **kw)
 
 
-def batches(case: str):
+def batches(case: str, cases: dict = CASES):
     """Two global batches of `case`, numpy, in the step's argument order."""
     from regda_tpu_torch.entry import synthetic_soft_labels, synthetic_stage2_batch
-    stage, b, size, _, _, _ = CASES[case]
+    stage, b, size, _, _, _ = cases[case]
     rng = np.random.default_rng(1)
     out = []
     for _ in range(2):
