@@ -190,6 +190,23 @@ Phases (any failure raises, and the exit code is non-zero):
               tile, the prototype pass, the batch waits of each step, eval
               seconds per split and per tile, the checkpoint chain's seconds,
               each stage's peak memory.
+  6b. device data `phase_device_data()`: on phase 6's tree, train_src
+              --align-domain 1 and train_ssl_reg --gen 1 ... --lt uvem (from
+              phase 6's stage-2 checkpoint) again with REGDA_DEVICE_DATA=1:
+              the loaders are DeviceLoaders and the eval and pseudo-label
+              sets DeviceEvalSets (no fallback taken), every batch on the
+              card, losses finite, the 32 pseudo maps summing to 1, one
+              histogram launch a stage-3 step. Printed beside phase 6's host
+              loader and phase 3's bare step, all in this call: the loop's
+              pace (run_step's host clock, steps 2-6, EMA and mean; the wall
+              a step to the last step done on the card), the upload of one
+              host-loader step alone, batch assembly on the card (CUDA
+              events) and the host's us a call, the bytes cached a split and
+              sent a step, the peaks and pseudo generation's ms a tile. Then
+              `check_crop_path`: 1024^2 tiles cropped to 512, batches of the
+              train and the prob stack assembled on the card and on the CPU
+              with the same forced offsets and ops: integers and soft labels
+              equal, images within 1e-6.
   7. prep     `phase_prep()`: (a) `get_superpixels` with LSC and with SLIC
               on the card over PREP_TILES seeded 512^2 tiles, int32 maps, the
               boundary maps of PREP_CPU_TILES of them against a CPU run
@@ -208,7 +225,8 @@ group runs (and in each of its two ranks), in each of phase 3c's two
 ranks just before its steps, just before the encode of
 phase 4, again just before its fast decode, again just before phase 5's
 batch call, again just before phase 6's stage-2 run and its stage-3 run,
-and just before phase 7's stability check, and read just after each.
+just before phase 6b's stage-3 run, and just before phase 7's stability
+check, and read just after each.
 TF32 is off in every phase (`torch.backends.cudnn.allow_tf32` and
 `torch.backends.cuda.matmul.allow_tf32` both False): phases 2,
 4 and 5 compute in bf16, and the others hold float32 as float32, as the JAX
@@ -223,7 +241,8 @@ histogram's record carries its launches in phase 3's stage-2 steps
 `launches_parallel_stage3`) and on each of its two ranks
 (`launches_two_ranks`, where gloo ran) and on each rank of the spatial
 pair (`launches_spatial`), in phase 6's stage-2 and stage-3 CLI runs (`launches_stages`,
-`launches_stage3`), in phase 3's bare stage-3 steps
+`launches_stage3`), in phase 6b's stage-3 run on device data
+(`launches_stage3_device_data`), in phase 3's bare stage-3 steps
 (`launches_stage3_bare`) and in its remat steps (`launches_stage2_remat`,
 `launches_stage3_remat`); the SAM kernels' records carry their launches in
 phase 7's stability check (`launches_stability_check`). Without a
@@ -1966,14 +1985,42 @@ def _loop_ms(trainer) -> tuple[float, float]:
 
 class _StageProbe:
     """What one stage CLI run did, read around its calls: the metrics of
-    every `Trainer.run_step`, the host seconds spent waiting in
-    `InfiniteIterator.next` for a batch, and in `evaluate`; for stage 3,
-    `gener_target_pseudo`'s seconds and what it wrote (read before the CLI
-    removes it): file count, shapes, the worst |sum of probabilities - 1|."""
+    every `Trainer.run_step`, the host clock at its start, the bytes of
+    numpy arrays it was handed (which it uploads) and the devices of its
+    tensors, the wall clock once the STAGE_STEPS-th step is done on the card
+    (`end`); the host seconds spent waiting in `InfiniteIterator.next` for a
+    batch, and in `evaluate`; what `get_eval_set` gave the eval and the
+    pseudo-label pass (`eval_sets`); for stage 3, `gener_target_pseudo`'s
+    seconds and what it wrote (read before the CLI removes it): file count,
+    shapes, the worst |sum of probabilities - 1|."""
 
     def __init__(self, keep: str | None = None):
         self.metrics, self.batch_wait, self.eval_s, self.pseudo = [], [], [], []
+        self.starts, self.host_bytes, self.devices, self.eval_sets = [], [], set(), []
+        self.end = None
         self.keep = keep   # a directory to copy the pseudo-label maps into
+
+    def _run_step(self, run_step):
+        def probed(trainer, i_iter=-1, **arrays):
+            import numpy as np
+            import torch
+            self.starts.append(time.perf_counter())
+            self.host_bytes.append(sum(a.nbytes for a in arrays.values()
+                                       if isinstance(a, np.ndarray)))
+            self.devices.update(str(a.device) if isinstance(a, torch.Tensor) else 'numpy'
+                                for a in arrays.values())
+            metrics = run_step(trainer, i_iter, **arrays)
+            self.metrics.append(metrics)
+            if len(self.metrics) == STAGE_STEPS:
+                torch.cuda.synchronize()
+                self.end = time.perf_counter()
+            return metrics
+        return probed
+
+    def wall_ms(self) -> float:
+        """Wall ms a step over steps 2..STAGE_STEPS, the batch fetches
+        between them included, to the last step's end on the card."""
+        return (self.end - self.starts[1]) / (STAGE_STEPS - 1) * 1e3
 
 
     def _pseudo(self, gen):
@@ -2003,6 +2050,7 @@ class _StageProbe:
         from unittest import mock
         from regda_tpu_torch.datasets import InfiniteIterator
         from regda_tpu_torch.tools import eval as eval_cli
+        from regda_tpu_torch.datasets import device_data
         from regda_tpu_torch.tools import train_ssl_reg
         from regda_tpu_torch.train.loop import Trainer
 
@@ -2014,7 +2062,9 @@ class _StageProbe:
                 return result
             return timed
 
-        return (mock.patch.object(Trainer, 'run_step', wrap(Trainer.run_step, self.metrics, True)),
+        return (mock.patch.object(Trainer, 'run_step', self._run_step(Trainer.run_step)),
+                mock.patch.object(device_data, 'get_eval_set',
+                                  wrap(device_data.get_eval_set, self.eval_sets, True)),
                 mock.patch.object(InfiniteIterator, 'next',
                                   wrap(InfiniteIterator.next, self.batch_wait)),
                 mock.patch.object(eval_cli, 'evaluate', wrap(eval_cli.evaluate, self.eval_s)),
@@ -2067,21 +2117,27 @@ def sharpen_classifiers(path: str, scale: float) -> None:
     torch.save(state, path)
 
 
-def phase_stages(device='cuda', bare: dict | None = None, keep: str | None = None) -> dict:
+def phase_stages(device='cuda', bare: dict | None = None, keep: str | None = None,
+                 root: str | None = None) -> dict:
     """Phase 6: the five stage CLIs in this process at full width on
     `configs/st/regda/full_smoke.py`'s synthetic tree (ResNet-101, C = 6,
-    512^2 tiles, batch 8 per domain, f32, TF32 off). `bare`: phase 3's
-    bare-step times, printed beside the loop's. `keep`: a directory that
-    receives stage 3's pseudo-label maps (`keep/pseudo`) and the target
-    tiles' labels (`keep/labels`). Returns the segment histogram's launches
-    in the stage-2 and the stage-3 runs (exactly one a step each), zeroed
-    just before each run: {'stage2': n, 'stage3': n}."""
+    512^2 tiles, batch 8 per domain, f32, TF32 off), through the host
+    loader (device data is off by default). `bare`: phase 3's bare-step
+    times, printed beside the loop's. `keep`: a directory that receives
+    stage 3's pseudo-label maps (`keep/pseudo`) and the target tiles'
+    labels (`keep/labels`). `root`: where the tree is written and left
+    (default: a temporary directory, removed). Returns the segment
+    histogram's launches in the stage-2 and the stage-3 runs (exactly one a
+    step each), zeroed just before each run, and the stage-1 and stage-3
+    runs' probes: {'stage2': n, 'stage3': n, 'probes': {'stage 1': ...,
+    'stage 3': ...}}."""
     import os
     import shutil
     import tempfile
     import numpy as np
     import torch
     from PIL import Image
+    from regda_tpu_torch.datasets import DALoader
     from regda_tpu_torch.models import build_deeplabv2
     from regda_tpu_torch.ops.kernels import segment_hist as sh
     from regda_tpu_torch.tools import eval as eval_cli
@@ -2093,7 +2149,9 @@ def phase_stages(device='cuda', bare: dict | None = None, keep: str | None = Non
     env = {f'REGDA_FULL_STEPS{n}': str(STAGE_STEPS) for n in ('', '2', '3')}
     saved = {k: os.environ.get(k) for k in (*env, 'REGDA_FULL_ROOT')}
     launches = {}
-    with tempfile.TemporaryDirectory(prefix='regda_full_smoke_') as root:
+    tree = (contextlib.nullcontext(root) if root
+            else tempfile.TemporaryDirectory(prefix='regda_full_smoke_'))
+    with tree as root:
         os.environ.update(env, REGDA_FULL_ROOT=root)
         try:
             t0 = time.perf_counter()
@@ -2186,6 +2244,12 @@ def phase_stages(device='cuda', bare: dict | None = None, keep: str | None = Non
             for m in (miou, miou3):
                 if not (math.isfinite(m) and 0.0 <= m <= 1.0):
                     raise AssertionError(f'test mIoU {m}')
+            for run in (s1, s2, s3):
+                if not (isinstance(run.source, DALoader) and isinstance(run.target, DALoader)):
+                    raise AssertionError(f'loaders {type(run.source)}, {type(run.target)}: '
+                                         'device data is on, where the default is off')
+            if any(p.eval_sets or p.devices != {'numpy'} for p in (probe1, probe2, probe3)):
+                raise AssertionError('device-resident data in a default run')
         finally:
             for k, v in saved.items():
                 if v is None:
@@ -2239,7 +2303,238 @@ def phase_stages(device='cuda', bare: dict | None = None, keep: str | None = Non
           f'included), eval {eval3_peak:.2f}; segment_hist launches in the stage-2 run '
           f'{launches["stage2"]}, in the stage-3 run {launches["stage3"]} ({STAGE_STEPS} steps '
           f'each)')
-    return launches
+    return dict(launches, probes={'stage 1': probe1, 'stage 3': probe3}, loops=loops)
+
+
+def _upload_ms(device, shapes: dict, repeats: int = 5) -> float:
+    """Median ms to upload one step's numpy arrays of `shapes` (name ->
+    (shape, dtype)) as the Trainer does (`torch.from_numpy(a).to(device)`,
+    pageable), with the card idle before: the upload alone."""
+    import numpy as np
+    import torch
+    arrays = [np.ones(shape, dtype) for shape, dtype in shapes.values()]
+    times = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in arrays:
+            torch.from_numpy(a).to(device)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times[1:])[repeats // 2] * 1e3
+
+
+def _assembly(loader) -> tuple[float, float]:
+    """(device ms, host us) a batch of `loader.sample` (a DeviceLoader) on
+    the first tiles: CUDA events over 20 batches, and the host's
+    microseconds a call."""
+    import numpy as np
+    idx = np.arange(loader.batch_size) % len(loader.dataset)
+    return cuda_ms(lambda: loader.sample(idx), 20), host_us(lambda: loader.sample(idx), 50)
+
+
+def _write_big_tiles(root: str, n: int = 4, hw: int = 1024, classes: int = 6) -> dict:
+    """A seeded tree of n hw^2 tiles: images, ids 0..7, region maps and
+    float32 soft labels (`<fname>.npy`); -> its directories."""
+    import os
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(21)
+    dirs = {k: os.path.join(root, k, 'train') for k in ('img_dir', 'ann_dir', 'reg_dir', 'prob')}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (hw, hw, 3), dtype=np.uint8)).save(
+            os.path.join(dirs['img_dir'], f't{i}.png'))
+        Image.fromarray(rng.integers(0, 8, (hw, hw), dtype=np.uint8)).save(
+            os.path.join(dirs['ann_dir'], f't{i}.png'))
+        Image.fromarray(rng.integers(0, 30000, (hw, hw)).astype(np.int32), mode='I').save(
+            os.path.join(dirs['reg_dir'], f't{i}.tif'))
+        prob = rng.random((hw, hw, classes), dtype=np.float32)
+        np.save(os.path.join(dirs['prob'], f't{i}.png.npy'), prob / prob.sum(-1, keepdims=True))
+    return dirs
+
+
+def check_crop_path(device) -> dict:
+    """The crop path, which `full_smoke`'s 512^2 tiles never take: 4 tiles
+    of 1024^2 cropped to 512, batches of 8 of the train stack (id labels,
+    region maps) and of the prob stack (soft labels, region maps) assembled
+    on the card and on the CPU with the same forced crop offsets and ops
+    (every `oneof` code, every `indep` flag set): integers and soft labels
+    equal, images within 1e-6. -> device ms and host us a batch, by stack,
+    with the card drawing its own decisions."""
+    import tempfile
+    import numpy as np
+    import torch
+    from regda_tpu_torch.configs._base import prob_target_transforms, train_transforms
+    from regda_tpu_torch.datasets import DeviceLoader
+    from regda_tpu_torch.datasets.device_data import Decisions, draw_decisions
+    stats = ((127.0, 127.0, 127.0), (50.0, 50.0, 50.0))
+    idx = np.array([0, 1, 2, 3, 3, 2, 1, 0])
+    forced_ops = {'oneof': torch.tensor([0, 1, 2, 3, 4, 5, 6, 1]),
+                  'indep': torch.tensor([[h, v, r] for h in (0, 1) for v in (0, 1)
+                                         for r in (0, 1)], dtype=torch.bool)}
+    times = {}
+    with tempfile.TemporaryDirectory(prefix='regda_crop_path_') as root:
+        dirs = _write_big_tiles(root)
+        for stack in ('train', 'prob'):
+            cfg = dict(image_dir=[dirs['img_dir']], mask_dir=[dirs['ann_dir']], training=True,
+                       batch_size=8, read_sup=True,
+                       transforms=train_transforms(*stats, crop=512))
+            if stack == 'prob':
+                cfg.update(mask_dir=[dirs['prob']], label_type='prob',
+                           transforms=prob_target_transforms(*stats, crop=512))
+            card = DeviceLoader(cfg, 'IsprsDA', device=device)
+            cpu = DeviceLoader(cfg, 'IsprsDA', device='cpu')
+            dec = draw_decisions(cpu.spec, cpu.tile_hw, len(idx), torch.Generator().manual_seed(3))
+            dec = dec._replace(ops=forced_ops[cpu.spec['kind']])
+            got = card.sample(idx, Decisions(*(t.to(card.device) for t in dec)))
+            want = cpu.sample(idx, dec)
+            for k in ('image', 'cls', 'sup'):
+                g, w = got[k].cpu(), want[k]
+                if g.shape != (8, 512, 512, *w.shape[3:]) or g.dtype != w.dtype:
+                    raise AssertionError(f'crop path {stack} {k}: {g.shape} {g.dtype}')
+                err = float((g - w).abs().max())
+                if err > (1e-6 if k == 'image' else 0.0):
+                    raise AssertionError(f'crop path {stack} {k}: card and CPU differ by {err}')
+            drawn = card.sample(idx)
+            if drawn['image'].shape != (8, 512, 512, 3):
+                raise AssertionError(f'crop path {stack}: drawn batch {drawn["image"].shape}')
+            times[stack] = _assembly(card)
+            print(f'[device data] crop path ({stack} stack, 1024^2 tiles cropped to 512, batch 8): '
+                  f'card equals CPU with forced offsets {dec.y.tolist()} / {dec.x.tolist()} and '
+                  f'ops {dec.ops.int().tolist()}; assembly {times[stack][0]:.3f} ms a batch on '
+                  f'the card, {times[stack][1]:.0f} us of host a call; cache '
+                  f'{card.nbytes / 2**20:.1f} MiB')
+            del card, cpu
+    return times
+
+
+def phase_device_data(device, root: str, stages: dict, bare: dict | None = None) -> dict:
+    """Phase 6b: `train_src --align-domain 1` and `train_ssl_reg --gen 1
+    --refine-label 1 --sam-refine --lt uvem` (from phase 6's stage-2
+    checkpoint) again, STAGE_STEPS steps each on phase 6's tree at `root`,
+    with REGDA_DEVICE_DATA=1. Asserts that no fallback was taken (the
+    loaders are DeviceLoaders, the eval and pseudo-label sets
+    DeviceEvalSets), that every batch arrives on the card, losses finite,
+    32 pseudo maps summing to 1, one histogram launch a stage-3 step (the
+    count zeroed just before the stage-3 run). Prints the loop's pace
+    beside phase 6's host loader (`stages`, this call) and phase 3's bare
+    step (`bare`), the upload a host-loader step costs alone, batch
+    assembly on the card, the bytes cached and sent a step, the peaks and
+    pseudo generation's ms a tile; then `check_crop_path`. Returns
+    {'stage3': histogram launches}."""
+    import os
+    import numpy as np
+    import torch
+    from regda_tpu_torch.datasets import DeviceEvalSet, DeviceLoader
+    from regda_tpu_torch.ops.kernels import segment_hist as sh
+    from regda_tpu_torch.tools import train_src, train_ssl_reg
+
+    cfg_name = 'st.regda.full_smoke'
+    env = {f'REGDA_FULL_STEPS{n}': str(STAGE_STEPS) for n in ('', '2', '3')}
+    env.update(REGDA_FULL_ROOT=root, REGDA_DEVICE_DATA='1')
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    align = os.path.join(root, 'log', 'align')
+    common = ['--config-path', cfg_name, '--device', device]
+    try:
+        s1, _, s1_peak, probe1 = _stage_run('stage 1 on device data (train_src --align-domain 1)',
+                                            train_src.main, [*common, '--align-domain', '1'])
+        sh.launches = 0
+        s3, s3_s, s3_peak, probe3 = _stage_run(
+            'stage 3 on device data (train_ssl_reg --gen 1 --refine-label 1 --sam-refine '
+            '--lt uvem)', train_ssl_reg.main,
+            [*common, '--ckpt-model', f'{align}/Vaihingen_best.pth',
+             '--ckpt-proto', f'{align}/prototypes_best.npy', '--gen', '1',
+             '--refine-label', '1', '--sam-refine', '--percent', '0.5', '--lt', 'uvem'])
+        launches = sh.launches
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    for stage, run, probe in (('stage 1', s1, probe1), ('stage 3', s3, probe3)):
+        if not (isinstance(run.source, DeviceLoader) and isinstance(run.target, DeviceLoader)):
+            raise AssertionError(f'{stage}: loaders {type(run.source)}, {type(run.target)}: '
+                                 'a fallback to the host loader was taken')
+        sets = probe.eval_sets
+        if not sets or not all(isinstance(e, DeviceEvalSet) for e in sets):
+            raise AssertionError(f'{stage}: eval / pseudo sets {sets}: a fallback was taken')
+        on = run.source.device
+        if (on.type != torch.device(device).type or probe.devices != {str(on)}
+                or any(probe.host_bytes)):
+            raise AssertionError(f'{stage}: batches on {probe.devices}, numpy bytes '
+                                 f'{probe.host_bytes}: not all on {device}')
+        if len(probe.metrics) != STAGE_STEPS:
+            raise AssertionError(f'{stage} ran {len(probe.metrics)} steps, not {STAGE_STEPS}')
+        for i, m in enumerate(probe.metrics):
+            vals = {k: float(v) for k, v in m.items()}
+            if not all(math.isfinite(v) for v in vals.values()):
+                raise AssertionError(f'{stage} step {i}: non-finite loss {vals}')
+        print(f'[device data] {stage} last step losses {vals}')
+    if s3.target.dataset.label_type != 'prob' or len(probe3.eval_sets) != 3:
+        raise AssertionError(f'stage 3: target {s3.target.dataset.label_type}, '
+                             f'{len(probe3.eval_sets)} sets (pseudo, then two evals)')
+    targets = [float(m['loss_target']) for m in probe3.metrics]
+    if not all(t > 0 for t in targets):
+        raise AssertionError(f'stage 3 target losses {targets}: UVEM used no pixel')
+    gen = probe3.pseudo
+    if (len(gen) != 1 or gen[0]['files'] != 32
+            or gen[0]['shapes'] != {((512, 512, 6), 'float32')} or not gen[0]['worst'] <= 1e-3):
+        raise AssertionError(f'pseudo-labels on device data: {gen}')
+    if launches != STAGE_STEPS:
+        raise AssertionError(f'segment_hist launched {launches} times in {STAGE_STEPS} stage-3 '
+                             'steps on device data; expected one a step')
+
+    host_probes, host_loops = stages['probes'], stages['loops']
+    dev_loops = {'stage 1': _loop_ms(s1.trainer), 'stage 3': _loop_ms(s3.trainer)}
+    dev_probes = {'stage 1': probe1, 'stage 3': probe3}
+    bare = bare or {}
+    px = (8, 512, 512)
+    shapes = {'stage 1': {'images_s': ((*px, 3), np.float32), 'label_s': (px, np.int32),
+                          'images_t': ((*px, 3), np.float32)}}
+    shapes['stage 3'] = dict(shapes['stage 1'], label_t_prob=((*px, 6), np.float32),
+                             regs_t=(px, np.int32))
+    for stage in ('stage 1', 'stage 3'):
+        (h_ema, h_mean), (d_ema, d_mean) = host_loops[stage], dev_loops[stage]
+        h_wall, d_wall = host_probes[stage].wall_ms(), dev_probes[stage].wall_ms()
+        up = _upload_ms(device, shapes[stage])
+        bare_ms = bare.get('stage3_ms') if stage == 'stage 3' else None
+        host_bytes = sum(host_probes[stage].host_bytes) / STAGE_STEPS
+        run = s1 if stage == 'stage 1' else s3
+        dev_bytes = (run.source.uploaded_bytes + run.target.uploaded_bytes) / STAGE_STEPS
+        print(f'[device data] {stage} loop pace, ResNet-101 f32 2x8x512^2, steps '
+              f'2-{STAGE_STEPS}: host clock a run_step EMA / mean: host loader (phase 6) '
+              f'{h_ema:.1f} / {h_mean:.1f}, device data {d_ema:.1f} / {d_mean:.1f} ms; wall a '
+              f'step to the last step done on the card, batch fetch included: host loader '
+              f'{h_wall:.1f}, device data {d_wall:.1f} ms ({(h_wall - d_wall):.1f} ms, '
+              f'{(h_wall - d_wall) / h_wall * 100:.2f} % less); bare step of phase 3 '
+              + (f'{bare_ms:.1f} ms' if bare_ms is not None else 'not measured')
+              + f'; the host loader\'s upload of one step alone (pageable, card idle) '
+              f'{up:.1f} ms for {host_bytes / 2**20:.1f} MiB; device data sends '
+              f'{dev_bytes:.0f} B a step (batch indices)')
+    for stage, run in (('stage 1', s1), ('stage 3', s3)):
+        src_ms, src_us = _assembly(run.source)
+        tgt_ms, tgt_us = _assembly(run.target)
+        print(f'[device data] {stage} batch assembly on the card (8 x 512^2, no crop): source '
+              f'{src_ms:.3f} ms ({src_us:.0f} us of host a call), target {tgt_ms:.3f} ms '
+              f'({tgt_us:.0f} us); cached: source {run.source.nbytes / 2**20:.1f} MiB, target '
+              f'{run.target.nbytes / 2**20:.1f} MiB ({len(run.target.dataset)} tiles each)')
+    pseudo_set, val_set = probe3.eval_sets[0], probe3.eval_sets[1]
+    print(f'[device data] eval and pseudo sets cached: val {val_set.nbytes / 2**20:.1f} MiB, '
+          f'pseudo {pseudo_set.nbytes / 2**20:.1f} MiB; pseudo-label generation on the cached '
+          f'set (32 tiles, slide + TTA) {gen[0]["seconds"]:.2f} s, '
+          f'{gen[0]["seconds"] / 32 * 1e3:.1f} ms/tile; the stage-3 CLI {s3_s:.2f} s; peak GiB '
+          f'stage 1 {s1_peak:.2f}, stage 3 {s3_peak:.2f}; {launches} histogram launches in '
+          f'{STAGE_STEPS} stage-3 steps')
+    print(f'[device data] stage 3 target (UVEM) losses {targets}')
+    del s1, s3
+    torch.cuda.empty_cache()
+    check_crop_path(device)
+    return {'stage3': launches}
 
 
 def _encode_profile(model, images) -> str:
@@ -3601,12 +3896,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     import tempfile
-    with tempfile.TemporaryDirectory(prefix='regda_kept_') as kept:
+    with tempfile.TemporaryDirectory(prefix='regda_kept_') as kept, \
+            tempfile.TemporaryDirectory(prefix='regda_full_smoke_') as tree:
         # zeroes the histogram's count just before its stage-2 and stage-3 CLI runs
-        stages = phase_stages(device, bare, keep=kept)
+        stages = phase_stages(device, bare, keep=kept, root=tree)
         record['launches_stages'] = stages['stage2']
         record['launches_stage3'] = stages['stage3']
         record['launches_stage3_bare'] = bare['stage3_launches']
+        torch.cuda.empty_cache()
+        # zeroes it again just before its stage-3 run
+        record['launches_stage3_device_data'] = phase_device_data(
+            device, tree, stages, bare)['stage3']
+        del stages
         torch.cuda.empty_cache()
         # zeroes every SAM kernel's count just before the stability check
         prep = phase_prep(device, kept)

@@ -1,5 +1,6 @@
 """Batched host-side data loader with threaded prefetch (the port's copy of
-regda_tpu/datasets/loader.py, with `make_loader`).
+regda_tpu/datasets/loader.py; `make_loader`, which picks it or the
+device-resident loader, is in datasets/device_data.py).
 
 Parity target: regda/datasets/daLoader.py:29-77 (`DALoader`: random sampler
 + drop_last for training, sequential for eval, num_workers=4) and
@@ -23,7 +24,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from regda_tpu_torch.datasets.basedata import TileDataset
-from regda_tpu_torch.datasets.native_pipeline import native_enabled, try_native_batch
+from regda_tpu_torch.datasets.native_pipeline import try_native_batch
 
 
 def _collate(samples: list[dict]) -> dict:
@@ -180,16 +181,3 @@ class InfiniteIterator:
             self._it = iter(self.loader)
             return next(self._it)
 
-
-def make_loader(config: dict, dataset_name: str, seed: int = 2333,
-                logger=None) -> DALoader:
-    """The training splits' loader: always the host `DALoader` (the JAX
-    package's device-resident cache works around its TPU host link and is
-    not ported). Logs which decode path its batches will take."""
-    loader = DALoader(config, dataset_name, seed=seed)
-    if logger is not None:
-        native = (loader.native and loader.dataset.label_type == 'id'
-                  and native_enabled())
-        logger.info(f'host loader over {len(loader.dataset)} tiles: '
-                    f'{"native" if native else "Python"} decode path')
-    return loader

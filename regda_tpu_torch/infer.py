@@ -8,8 +8,10 @@ the BN-folded model (models/fold_bn.py) with both PPM heads' shared conv
 fused (models/fused_eval.py).
 
 The numpy methods keep the JAX package's contract, (B, H, W, 3) float32
-normalized images in and numpy out; `probs_tensor` and `multiscale_tensor`
-under them take and return tensors on the model's device. (The JAX
+normalized images in and numpy out (the images may also be a float32
+tensor on the model's device, as a DeviceEvalSet gives them);
+`probs_tensor` and `multiscale_tensor` under them take and return tensors
+on the model's device. (The JAX
 inferencer's `compute_dtype`, which no caller sets, is the model's `dtype`
 here.)
 
@@ -29,6 +31,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from regda_tpu_torch.datasets.device_data import batch_tensor
 from regda_tpu_torch.models.deeplabv2 import DeeplabV2
 from regda_tpu_torch.models.fold_bn import fold_batchnorm, folded_model
 from regda_tpu_torch.models.fused_eval import eval_forward
@@ -108,8 +111,11 @@ class SegInferencer:
             return tta_apply(self._apply_probs, images)
         return self._apply_probs(images)
 
-    def _to_device(self, images: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
+    def _to_device(self, images) -> torch.Tensor:
+        """Numpy images uploaded as float32; a float32 tensor on this
+        device (a DeviceEvalSet's batch) taken as it is; any other tensor
+        refused."""
+        return batch_tensor(images, self.device, torch.float32)
 
     def predict_probs(self, images: np.ndarray, slide: bool = True,
                       tta: bool = False) -> np.ndarray:

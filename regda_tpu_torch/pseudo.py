@@ -10,6 +10,8 @@ of datasets/basedata.py), and a palette PNG of the selected hard labels
 under `<dir>_color`. With save_prob=False, the hard labels + 1 go to uint8
 PNGs instead. The probabilities stay on the inferencer's device until the
 resize and the selection are done; each batch comes back to the host once.
+The loader may be a DALoader or a DeviceEvalSet, whose images are already
+on the inferencer's device.
 With an inferencer that has a `group` (a data-parallel Trainer's), each rank
 predicts its share of every batch and the probabilities are gathered; the
 first rank writes every file, and the call returns on every rank once it
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from regda_tpu_torch.datasets import get_meta
+from regda_tpu_torch.datasets.device_data import batch_tensor
 from regda_tpu_torch.ops.pseudo import pseudo_selection
 from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
 from regda_tpu_torch.parallel.mesh import barrier, is_primary
@@ -45,8 +48,8 @@ def gener_target_pseudo(cfg, inferencer, pseudo_loader, save_pseudo_label_path,
     select = getattr(cfg, 'PSEUDO_SELECT', True)
 
     for i, batch in enumerate(pseudo_loader):
-        images = torch.from_numpy(np.ascontiguousarray(batch['image'], np.float32))
-        probs = inferencer.probs_tensor(images.to(inferencer.device), slide=slide, tta=tta)
+        images = batch_tensor(batch['image'], inferencer.device, torch.float32)
+        probs = inferencer.probs_tensor(images, slide=slide, tta=tta)
         if tuple(probs.shape[1:3]) != size:
             probs = resize_bilinear_align_corners(probs, size)
         if not is_primary(group):

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from regda_tpu_torch.datasets import get_meta, make_loader
+from regda_tpu_torch.datasets.device_data import astype, batch_tensor
 from regda_tpu_torch.entry import _device
 from regda_tpu_torch.ops.prototypes import prototype_finalize
 from regda_tpu_torch.parallel import (barrier, broadcast_module, data_group_from_env,
@@ -69,12 +70,13 @@ def main(argv=None) -> tuple[np.ndarray, np.ndarray]:
     data_sum = torch.zeros(meta.num_classes, feat_dim, device=device)
     data_cnt = torch.zeros(meta.num_classes, 1, device=device)
 
-    sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger)
+    sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger,
+                               device=device)
     for batch in sourceloader:
-        images, labels = shard_batch(group, batch['image'], batch['cls'].astype(np.int32))
+        images, labels = shard_batch(group, batch['image'], astype(batch['cls'], np.int32))
         data_sum, data_cnt = proto_accum_step(
-            model, data_sum, data_cnt, torch.from_numpy(images).to(device),
-            torch.from_numpy(labels).to(device), meta.num_classes, meta.ignore_label,
+            model, data_sum, data_cnt, batch_tensor(images, device),
+            batch_tensor(labels, device), meta.num_classes, meta.ignore_label,
             group)
 
     prototypes = prototype_finalize(data_sum, data_cnt).cpu().numpy()

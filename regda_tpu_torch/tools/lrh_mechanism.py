@@ -29,13 +29,14 @@ import numpy as np
 import torch
 
 from regda_tpu_torch.datasets import get_meta, make_loader
+from regda_tpu_torch.datasets.device_data import astype, batch_tensor
 from regda_tpu_torch.entry import _device
 from regda_tpu_torch.ops.lrh import homogenize
 from regda_tpu_torch.ops.pseudo import pseudo_selection
 from regda_tpu_torch.ops.refine import label_refine
 from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
 from regda_tpu_torch.tools.train_src import build_model
-from regda_tpu_torch.utils.checkpoint import load_prototypes
+from regda_tpu_torch.utils.checkpoint import load_prototypes, to_host
 from regda_tpu_torch.utils.tools import disable_tf32, import_config
 
 
@@ -78,13 +79,13 @@ def main(argv=None) -> dict:
     # and region maps (PSEUDO_DATA_CONFIG pairs them with no random geometry)
     tcfg = dict(cfg.PSEUDO_DATA_CONFIG)
     tcfg['read_sup'] = True
-    loader = make_loader(tcfg, cfg.DATASETS)
+    loader = make_loader(tcfg, cfg.DATASETS, device=device)
 
     before, after, gts = [], [], []
     with torch.no_grad():
         for batch in loader:
-            imgs = torch.from_numpy(batch['image']).to(device)
-            regs = torch.from_numpy(batch['sup'].astype(np.int32)).to(device)
+            imgs = batch_tensor(batch['image'], device)
+            regs = batch_tensor(astype(batch['sup'], np.int32), device)
             p1, p2, feat = model(imgs, torch.Generator(device=device).manual_seed(0))
             hw = tuple(imgs.shape[1:3])
             soft = (torch.softmax(resize_bilinear_align_corners(p1, hw), -1)
@@ -96,7 +97,7 @@ def main(argv=None) -> dict:
             refined = homogenize(hard, regs, args.percent, nc, ig)
             before.append(hard.cpu().numpy())
             after.append(refined.cpu().numpy())
-            gts.append(np.asarray(batch['cls'], np.int32))
+            gts.append(np.asarray(to_host(batch['cls']), np.int32))
     b, a, gt = np.concatenate(before), np.concatenate(after), np.concatenate(gts)
 
     res = dict(before=_stats(b, gt, ig), after=_stats(a, gt, ig))

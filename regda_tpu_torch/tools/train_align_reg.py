@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from regda_tpu_torch.datasets import InfiniteIterator, get_meta, make_loader
+from regda_tpu_torch.datasets.device_data import astype
 from regda_tpu_torch.entry import _device
 from regda_tpu_torch.parallel import (barrier, broadcast_module, data_group_from_env,
                                       is_primary, shutdown)
@@ -108,14 +109,15 @@ def main(argv=None) -> types.SimpleNamespace:
     trainer = Trainer(model, cfg, logger, state, step_fn, group)
     start_iter = trainer.try_resume() if args.auto_resume else 0
 
-    sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger)
+    sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger,
+                               device=device)
     # stage 2 target loader: same id-label target dirs as stage 1 but with
     # SAM region maps (sup) attached (train_align_reg.py:161-163)
     target_config = dict(cfg.TARGET_DATA_CONFIG)
     target_config['label_type'] = 'id'
     target_config['mask_dir'] = None
     target_config['read_sup'] = True
-    targetloader = make_loader(target_config, cfg.DATASETS, logger=logger)
+    targetloader = make_loader(target_config, cfg.DATASETS, logger=logger, device=device)
     source_iter = InfiniteIterator(sourceloader)
     target_iter = InfiniteIterator(targetloader)
     logger.info(f'batch num: source={len(sourceloader)}, '
@@ -127,8 +129,8 @@ def main(argv=None) -> types.SimpleNamespace:
         bt = target_iter.next()
         metrics = trainer.run_step(
             i_iter=i_iter,
-            images_s=bs['image'], label_s=bs['cls'].astype(np.int32),
-            images_t=bt['image'], regs_t=bt['sup'].astype(np.int32))
+            images_s=bs['image'], label_s=astype(bs['cls'], np.int32),
+            images_t=bt['image'], regs_t=astype(bt['sup'], np.int32))
         trainer.maybe_log(i_iter, metrics)
         trainer.maybe_eval(i_iter, stop_steps, eval_at_zero=True)
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from regda_tpu_torch.datasets import InfiniteIterator, get_meta, make_loader
+from regda_tpu_torch.datasets.device_data import astype
 from regda_tpu_torch.entry import _device
 from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.parallel import broadcast_module, data_group_from_env, is_primary, shutdown
@@ -104,8 +105,10 @@ def main(argv=None) -> types.SimpleNamespace:
     trainer = Trainer(model, cfg, logger, state, step_fn, group)
     start_iter = trainer.try_resume() if args.auto_resume else 0
 
-    sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger)
-    targetloader = make_loader(cfg.TARGET_DATA_CONFIG, cfg.DATASETS, logger=logger)
+    sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger,
+                               device=device)
+    targetloader = make_loader(cfg.TARGET_DATA_CONFIG, cfg.DATASETS, logger=logger,
+                               device=device)
     source_iter = InfiniteIterator(sourceloader)
     target_iter = InfiniteIterator(targetloader)
     logger.info(f'batch num: source={len(sourceloader)}, '
@@ -117,7 +120,7 @@ def main(argv=None) -> types.SimpleNamespace:
         bt = target_iter.next()
         metrics = trainer.run_step(
             i_iter=i_iter,
-            images_s=bs['image'], label_s=bs['cls'].astype(np.int32),
+            images_s=bs['image'], label_s=astype(bs['cls'], np.int32),
             images_t=bt['image'])
         trainer.maybe_log(i_iter, metrics)
         trainer.maybe_eval(i_iter, stop_steps)

@@ -34,7 +34,9 @@ import types
 import numpy as np
 import torch
 
-from regda_tpu_torch.datasets import DALoader, InfiniteIterator, get_meta, make_loader
+from regda_tpu_torch.datasets import (InfiniteIterator, device_data_enabled, eval_loader,
+                                      get_meta, make_loader)
+from regda_tpu_torch.datasets.device_data import astype
 from regda_tpu_torch.entry import _device
 from regda_tpu_torch.parallel import (barrier, broadcast_module, data_group_from_env,
                                       is_primary, shutdown)
@@ -124,7 +126,13 @@ def main(argv=None) -> types.SimpleNamespace:
     # second inferencer over the loaded variables)
     if args.gen:
         logger.info('###### Start generate pseudo dataset! ######')
-        pseudo_loader = DALoader(cfg.PSEUDO_DATA_CONFIG, cfg.DATASETS)
+        pseudo_cfg = cfg.PSEUDO_DATA_CONFIG
+        if device_data_enabled(pseudo_cfg):
+            # images and names only: no label is read. The JAX CLI lets
+            # DeviceCacheTooLarge escape here; this one falls back to the
+            # host loader with a warning, as the eval does
+            pseudo_cfg = dict(pseudo_cfg, mask_dir=None)
+        pseudo_loader = eval_loader(pseudo_cfg, cfg.DATASETS, device, logger, 'pseudo-label')
         gener_target_pseudo(cfg, trainer.inferencer, pseudo_loader,
                             save_pseudo_label_path, save_prob=True, slide=True,
                             ignore_label=meta.ignore_label,
@@ -132,10 +140,11 @@ def main(argv=None) -> types.SimpleNamespace:
     target_config = dict(cfg.TARGET_DATA_CONFIG)
     target_config['mask_dir'] = [save_pseudo_label_path]
     logger.info(str(target_config))
-    targetloader = make_loader(target_config, cfg.DATASETS, logger=logger)
+    targetloader = make_loader(target_config, cfg.DATASETS, logger=logger, device=device)
     logger.info('###### Start model retraining! ######')
 
-    sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger)
+    sourceloader = make_loader(cfg.SOURCE_DATA_CONFIG, cfg.DATASETS, logger=logger,
+                               device=device)
     source_iter = InfiniteIterator(sourceloader)
     target_iter = InfiniteIterator(targetloader)
     logger.info(f'batch num: source={len(sourceloader)}, '
@@ -147,9 +156,9 @@ def main(argv=None) -> types.SimpleNamespace:
         bt = target_iter.next()
         metrics = trainer.run_step(
             i_iter=i_iter,
-            images_s=bs['image'], label_s=bs['cls'].astype(np.int32),
-            images_t=bt['image'], label_t_prob=bt['cls'].astype(np.float32),
-            regs_t=bt['sup'].astype(np.int32))
+            images_s=bs['image'], label_s=astype(bs['cls'], np.int32),
+            images_t=bt['image'], label_t_prob=astype(bt['cls'], np.float32),
+            regs_t=astype(bt['sup'], np.int32))
         trainer.maybe_log(i_iter, metrics)
         trainer.maybe_eval(i_iter, stop_steps, eval_at_zero=True)
 

@@ -4,7 +4,9 @@ regda_tpu/train/loop.py).
 Mirrors the reference loops' cadence (tools/train_src.py:108-166): loss log
 every 50 steps, evaluate + checkpoint every EVAL_EVERY, keep `_best` by
 mIoU and copy the vis dir. A step is one call of a step from
-train/steps.py on batches moved from numpy to the model's device.
+train/steps.py on a batch on the model's device: a host loader's numpy
+arrays are uploaded there, and a DeviceLoader's tensors, assembled on that
+device already (datasets/device_data.py), are taken as they are.
 
 Checkpoints, under SNAPSHOT_DIR: `<TARGET_SET>_curr.pth` and `_best.pth`
 (the model's state_dict under the reference's key names) and `_state.pth`
@@ -16,7 +18,9 @@ place; REGDA_SYNC_CKPT=1 writes them in the loop instead.
 With a `group` (parallel.DataGroup, one process per card under `torchrun`)
 the Trainer is one rank of a data-parallel run, the counterpart of the JAX
 Trainer's batch sharding over its devices: every rank reads the loader's
-whole global batch and uploads only its own rows, so N ranks step through
+whole global batch and uploads only its own rows (a DeviceLoader on every
+rank holds the whole split and draws the same global batch from the same
+seed, and each rank takes its rows of it), so N ranks step through
 exactly the one-process run's batches (the step functions take the same
 group); evaluation and pseudo-labelling go through the inferencer's group
 (each rank predicts its share of a batch and the results are gathered);
@@ -40,6 +44,7 @@ from typing import Callable, Optional
 import torch
 
 from regda_tpu_torch.datasets import get_meta
+from regda_tpu_torch.datasets.device_data import batch_tensor
 from regda_tpu_torch.infer import SegInferencer
 from regda_tpu_torch.ops.losses import ClassBalanceState, GHMState
 from regda_tpu_torch.parallel.mesh import (DataGroup, broadcast_object, is_primary, rows,
@@ -96,8 +101,9 @@ class Trainer:
             self._trace_ctx = None
 
     def run_step(self, i_iter: int = -1, **arrays):
-        """One step on numpy `arrays` (the global batch), passed to the step
-        in keyword order; with a group, this rank's rows only."""
+        """One step on `arrays` (the global batch: numpy arrays, or tensors on
+        the model's device), passed to the step in keyword order; with a
+        group, this rank's rows only."""
         if self._profile:
             if i_iter == self._profile_start:
                 self._trace_ctx = trace_window(
@@ -108,7 +114,7 @@ class Trainer:
                   and self._trace_ctx is not None):
                 self._close_trace()
         self.timer.start()
-        batch = [torch.from_numpy(a).to(self.device)
+        batch = [batch_tensor(a, self.device)
                  for a in shard_batch(self.group, *arrays.values())]
         metrics = self.step_fn(self.state, *batch)
         self.step_seconds.append(self.timer.stop())

@@ -2,7 +2,8 @@
 (counterpart of regda_tpu/utils/eval.py).
 
 Parity target: regda/utils/eval.py:14-56 (`evaluate`): DALoader over
-EVAL/TEST_DATA_CONFIG at batch 1, per-tile slide(+TTA) labels, mask gt>=0,
+EVAL/TEST_DATA_CONFIG at batch 1 (a DeviceEvalSet where device data is on,
+datasets/device_data.py), per-tile slide(+TTA) labels, mask gt>=0,
 streaming PixelMetricIgnore (class 0 ignored for IsprsDA), palette-PNG dump
 per tile, table summary -> (table, mIoU).
 """
@@ -15,7 +16,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from regda_tpu_torch.datasets import DALoader, get_meta
+from regda_tpu_torch.datasets import eval_loader, get_meta
 from regda_tpu_torch.infer import SegInferencer
 from regda_tpu_torch.parallel.mesh import is_primary
 from regda_tpu_torch.utils.checkpoint import load_state_dict
@@ -57,7 +58,10 @@ def evaluate(model, state_dict: Optional[Mapping[str, torch.Tensor]], cfg,
         viz_op = VisualizeSegmm(vis_dir, meta.palette)
 
     data_cfg = cfg.TEST_DATA_CONFIG if test else cfg.EVAL_DATA_CONFIG
-    loader = DALoader(data_cfg, cfg.DATASETS)
+    # with device data on, the split lives on the device as uint8 and is
+    # normalised there, uploaded once a process rather than once an eval
+    device = inferencer.device if inferencer is not None else next(model.parameters()).device
+    loader = eval_loader(data_cfg, cfg.DATASETS, device, logger)
 
     if inferencer is None:
         if state_dict is not None:

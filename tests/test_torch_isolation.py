@@ -23,6 +23,7 @@ import regda_tpu_torch.ops.kernels.rel_attention, regda_tpu_torch.ops.kernels.st
 import regda_tpu_torch.ops.kernels.mask_stats, regda_tpu_torch.ops.kernels._band
 import regda_tpu_torch.models.sam.auto, regda_tpu_torch.tools.seg_everything
 import regda_tpu_torch.datasets, regda_tpu_torch.native, regda_tpu_torch.train.loop
+import regda_tpu_torch.datasets.device_data
 import regda_tpu_torch.utils.checkpoint, regda_tpu_torch.utils.eval
 import regda_tpu_torch.utils.profiling, regda_tpu_torch.tools.train_src
 import regda_tpu_torch.tools.init_prototypes, regda_tpu_torch.tools.train_align_reg
