@@ -184,7 +184,7 @@ Phases (any failure raises, and the exit code is non-zero):
               confident enough for UVEM: every stage-3 step's target loss is
               above 0. The pseudo maps and the target labels are kept for
               phase 7.
-              Printed on `[stages]` lines: ms/step through the loop (StepTimer
+              Printed on `[stages]` lines: ms/step through the loop (an
               EMA and mean of steps 2-6) beside phase 3's bare steps, the
               loader's decode path, pseudo generation's seconds and ms a
               tile, the prototype pass, the batch waits of each step, eval
@@ -1974,13 +1974,12 @@ STAGE_STEPS = 6   # REGDA_FULL_STEPS and REGDA_FULL_STEPS2 of phase 6
 
 
 def _loop_ms(trainer) -> tuple[float, float]:
-    """(StepTimer EMA over steps 2.., their mean) in ms: the loop's pace."""
-    from regda_tpu_torch.utils.profiling import StepTimer
-    timer = StepTimer()
-    for dt in trainer.step_seconds[1:]:
-        timer.record(dt)
+    """(EMA, decay 0.9, over steps 2.., their mean) in ms: the loop's pace."""
     later = trainer.step_seconds[1:]
-    return timer.ema * 1e3, sum(later) / len(later) * 1e3
+    ema = later[0]
+    for dt in later[1:]:
+        ema = 0.9 * ema + 0.1 * dt
+    return ema * 1e3, sum(later) / len(later) * 1e3
 
 
 class _StageProbe:

@@ -1,0 +1,10 @@
+"""train.backward_idle_pct: the share of the traced slice of stage-2 steps
+in which the device was idle while the host was inside the program's
+`step.backward` span (zero_grad and loss.backward()), in % (a part of
+train.idle_pct)."""
+
+from perfbench.work import spans
+
+
+def read(ctx):
+    return spans.idle_pct(ctx, 'step.backward')

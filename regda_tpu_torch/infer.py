@@ -39,6 +39,7 @@ from regda_tpu_torch.ops.resize import resize_bilinear_align_corners
 from regda_tpu_torch.ops.slide import slide_inference
 from regda_tpu_torch.ops.tta import tta_apply
 from regda_tpu_torch.parallel.mesh import DataGroup, all_gather_rows, share
+from regda_tpu_torch.utils.profiling import span
 
 # the most input pixels one model call takes (64 tiles of 512^2): a larger
 # batch of tiles or TTA variants runs as equal chunks below it, which bounds
@@ -103,34 +104,44 @@ class SegInferencer:
         """(B, H, W, 3) float32 on the model's device -> (B, H, W, C) float32."""
         return self._sharded(lambda x: self._probs(x, slide, tta), images)
 
-    def _probs(self, images: torch.Tensor, slide: bool, tta: bool) -> torch.Tensor:
-        if slide:
-            return slide_inference(self._apply_probs, images, self.num_classes,
-                                   self.tile, self.stride, tta)
-        if tta:
-            return tta_apply(self._apply_probs, images)
-        return self._apply_probs(images)
+    def _probs(self, images: torch.Tensor, slide: bool, tta: bool,
+               labels: bool = False) -> torch.Tensor:
+        """Probabilities, or with `labels` their argmax as uint8."""
+        with span('infer.forward'):
+            if slide:
+                probs = slide_inference(self._apply_probs, images, self.num_classes,
+                                        self.tile, self.stride, tta)
+            elif tta:
+                probs = tta_apply(self._apply_probs, images)
+            else:
+                probs = self._apply_probs(images)
+            return probs.argmax(-1).to(torch.uint8) if labels else probs
 
     def _to_device(self, images) -> torch.Tensor:
         """Numpy images uploaded as float32; a float32 tensor on this
         device (a DeviceEvalSet's batch) taken as it is; any other tensor
         refused."""
-        return batch_tensor(images, self.device, torch.float32)
+        with span('infer.upload'):
+            return batch_tensor(images, self.device, torch.float32)
 
     def predict_probs(self, images: np.ndarray, slide: bool = True,
                       tta: bool = False) -> np.ndarray:
         """images: (B, H, W, 3) normalized float32 -> (B, H, W, C) probs."""
-        return self.probs_tensor(self._to_device(images), slide, tta).cpu().numpy()
+        with span('infer.predict'):
+            probs = self.probs_tensor(self._to_device(images), slide, tta)
+            with span('infer.download'):
+                return probs.cpu().numpy()
 
     @torch.inference_mode()
     def predict_labels(self, images: np.ndarray, slide: bool = True,
                        tta: bool = False) -> np.ndarray:
         """images: (B, H, W, 3) normalized float32 -> (B, H, W) int32 class
         map, argmaxed on the device (only H * W bytes come back)."""
-        labels = self._sharded(
-            lambda x: self._probs(x, slide, tta).argmax(-1).to(torch.uint8),
-            self._to_device(images))
-        return labels.cpu().numpy().astype(np.int32)
+        with span('infer.predict'):
+            labels = self._sharded(lambda x: self._probs(x, slide, tta, labels=True),
+                                   self._to_device(images))
+            with span('infer.download'):
+                return labels.cpu().numpy().astype(np.int32)
 
     @torch.inference_mode()
     def multiscale_tensor(self, images: torch.Tensor, scales=MULTISCALE_SCALES,
@@ -144,15 +155,19 @@ class SegInferencer:
     def _multiscale(self, images: torch.Tensor, scales, tta: bool) -> torch.Tensor:
         h, w = images.shape[1:3]
         total = None
-        for scale in scales:
-            scaled = resize_bilinear_align_corners(
-                images, (int(round(h * scale)), int(round(w * scale))))
-            probs = tta_apply(self.model, scaled) if tta else self.model(scaled)
-            p = resize_bilinear_align_corners(probs.float(), (h, w))
-            total = p if total is None else total + p
-        return total / len(scales)
+        with span('infer.forward'):
+            for scale in scales:
+                scaled = resize_bilinear_align_corners(
+                    images, (int(round(h * scale)), int(round(w * scale))))
+                probs = tta_apply(self.model, scaled) if tta else self.model(scaled)
+                p = resize_bilinear_align_corners(probs.float(), (h, w))
+                total = p if total is None else total + p
+            return total / len(scales)
 
     def predict_multiscale(self, images: np.ndarray, scales=MULTISCALE_SCALES,
                            tta: bool = False) -> np.ndarray:
         """images: (B, H, W, 3) normalized float32 -> (B, H, W, C) mean probs."""
-        return self.multiscale_tensor(self._to_device(images), scales, tta).cpu().numpy()
+        with span('infer.predict'):
+            probs = self.multiscale_tensor(self._to_device(images), scales, tta)
+            with span('infer.download'):
+                return probs.cpu().numpy()

@@ -46,6 +46,7 @@ from regda_tpu_torch.ops.kernels.stability import (stability_counts_blocked,
                                                    stability_counts_fused, unblock_masks)
 from regda_tpu_torch.ops.resize import _interp_matrix_half_pixel, resize_bilinear_half_pixel
 from regda_tpu_torch.parallel.mesh import DataGroup, all_gather_objects, share
+from regda_tpu_torch.utils import profiling
 
 SAM_PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 SAM_PIXEL_STD = np.array([58.395, 57.12, 57.375], np.float32)
@@ -249,7 +250,9 @@ class _StageClock:
     """Milliseconds per named stage. On the card a stage is timed by a pair of
     CUDA events on the current stream, so its time is the stretch of the
     device's timeline between them, idle gaps included; host stages and the
-    CPU device use the host clock. Off (`enabled=False`) it does nothing."""
+    CPU device use the host clock. Off (`enabled=False`) it times nothing.
+    Either way a stage is the span `sam.<stage>` in an active profiler's
+    trace (utils/profiling.py:span)."""
 
     def __init__(self, enabled: bool, device: torch.device):
         self.enabled = enabled
@@ -259,19 +262,20 @@ class _StageClock:
 
     @contextlib.contextmanager
     def span(self, name: str, host: bool = False):
-        if not self.enabled:
-            yield
-        elif host or not self.cuda:
-            t0 = time.perf_counter()
-            yield
-            self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-        else:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            self._pairs.append((name, start, end))
+        with profiling.span(f'sam.{name}'):
+            if not self.enabled:
+                yield
+            elif host or not self.cuda:
+                t0 = time.perf_counter()
+                yield
+                self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+                self._pairs.append((name, start, end))
 
     def collect(self) -> dict[str, float]:
         """Wait for the open event pairs and return the sums so far."""

@@ -21,6 +21,7 @@ import torch
 
 from regda_tpu_torch.ops.kernels import _build
 from regda_tpu_torch.ops.kernels._autograd import grad_through_plain
+from regda_tpu_torch.utils.profiling import span
 
 # kernel launches made by `layernorm` in this process
 launches = 0
@@ -130,4 +131,5 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis of x (any leading shape): float32
     moments, float32 `scale` and `bias` of shape (C,), output in x's dtype."""
-    return _LayerNorm.apply(x, scale, bias, eps)
+    with span('kernel.layernorm'):
+        return _LayerNorm.apply(x, scale, bias, eps)

@@ -29,6 +29,7 @@ import torch
 
 from regda_tpu_torch.ops.kernels import _build
 from regda_tpu_torch.ops.kernels._band import ResizeFrame
+from regda_tpu_torch.utils.profiling import span
 
 # kernel launches made by `mask_stats_fused` in this process
 launches = 0
@@ -144,8 +145,9 @@ def mask_stats_fused(logits, frame: ResizeFrame, active=None):
                          ('active', None if active is None else active.device)):
         if device is not None and device != logits.device:
             raise ValueError(f'mask_stats: logits on {logits.device}, {what} on {device}')
-    if logits.device.type == 'cuda':
-        return _launch(logits, frame, active)
-    if logits.device.type == 'cpu':
-        return mask_stats_plain(logits, frame.m_h, frame.m_wt, frame.ch, frame.cw, active)
-    raise ValueError(f'mask_stats: no kernel for device {logits.device}')
+    with span('kernel.mask_stats'):
+        if logits.device.type == 'cuda':
+            return _launch(logits, frame, active)
+        if logits.device.type == 'cpu':
+            return mask_stats_plain(logits, frame.m_h, frame.m_wt, frame.ch, frame.cw, active)
+        raise ValueError(f'mask_stats: no kernel for device {logits.device}')

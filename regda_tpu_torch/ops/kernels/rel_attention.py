@@ -31,6 +31,7 @@ import torch
 
 from regda_tpu_torch.ops.kernels import _build
 from regda_tpu_torch.ops.kernels._autograd import grad_through_plain
+from regda_tpu_torch.utils.profiling import span
 
 # kernel launches made by `rel_attention` in this process
 launches = 0
@@ -163,4 +164,5 @@ def rel_attention(qkv: torch.Tensor, rh: torch.Tensor, rw: torch.Tensor, *,
     """Attention over N = kh * kw tokens with the decomposed rel-pos bias:
     qkv (3, B, H, N, D), rh (B, H, N, kh), rw (B, H, N, kw) -> (B, H, N, D)
     in qkv's dtype (see the module docstring for layouts and strides)."""
-    return _RelAttention.apply(qkv, rh, rw, scale, kh, kw)
+    with span('kernel.rel_attention'):
+        return _RelAttention.apply(qkv, rh, rw, scale, kh, kw)

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from regda_tpu_torch.ops.kernels import _build
+from regda_tpu_torch.utils.profiling import span
 
 # kernel launches made by `segment_hist_labels` in this process
 launches = 0
@@ -123,8 +124,9 @@ def segment_hist_labels(labels: torch.Tensor, regions: torch.Tensor,
     """labels (B, N) int32 (ignore < 0), regions (B, N) int32 -> (B, R, C)
     float32 histogram. Only labels in [0, C) and regions in [0, R) count."""
     _check(labels, regions, num_regions, num_classes)
-    if labels.device.type == 'cuda':
-        return _launch(labels, regions, num_regions, num_classes)
-    if labels.device.type == 'cpu':
-        return segment_hist_labels_plain(labels, regions, num_regions, num_classes)
-    raise ValueError(f'segment_hist: no kernel for device {labels.device}')
+    with span('kernel.segment_hist'):
+        if labels.device.type == 'cuda':
+            return _launch(labels, regions, num_regions, num_classes)
+        if labels.device.type == 'cpu':
+            return segment_hist_labels_plain(labels, regions, num_regions, num_classes)
+        raise ValueError(f'segment_hist: no kernel for device {labels.device}')

@@ -33,6 +33,7 @@ import torch
 
 from regda_tpu_torch.ops.kernels import _build
 from regda_tpu_torch.ops.kernels._band import ResizeFrame
+from regda_tpu_torch.utils.profiling import span
 
 # kernel launches made by `stability_counts_blocked` / `stability_counts_fused`
 launches_blocked = 0
@@ -153,14 +154,15 @@ def stability_counts_blocked(blk, frame: ResizeFrame, h: int, w: int, offset: fl
     if blk.ndim != 3 or blk.shape[1] != 16 * h or blk.shape[2] != w:
         raise ValueError(f'{name}: blk must be (M, {16 * h}, {w}), got {tuple(blk.shape)}')
     _check(name, blk, frame, 4 * h, 4 * w, active)
-    if blk.device.type == 'cuda':
-        out, launched = _launch(name, blk, frame, offset, active, True)
-        launches_blocked += launched
-        return out[:, 0], out[:, 1]
-    if blk.device.type == 'cpu':
-        return stability_counts_plain(unblock_masks(blk, h, w), frame.m_h, frame.m_wt, offset,
-                                      active)
-    raise ValueError(f'{name}: no kernel for device {blk.device}')
+    with span('kernel.stability_blocked'):
+        if blk.device.type == 'cuda':
+            out, launched = _launch(name, blk, frame, offset, active, True)
+            launches_blocked += launched
+            return out[:, 0], out[:, 1]
+        if blk.device.type == 'cpu':
+            return stability_counts_plain(unblock_masks(blk, h, w), frame.m_h, frame.m_wt, offset,
+                                          active)
+        raise ValueError(f'{name}: no kernel for device {blk.device}')
 
 
 def stability_counts_fused(logits, frame: ResizeFrame, offset: float = 1.0, active=None):
@@ -172,10 +174,11 @@ def stability_counts_fused(logits, frame: ResizeFrame, offset: float = 1.0, acti
     if logits.ndim != 3:
         raise ValueError(f'{name}: logits must be (M, SH, SW), got {tuple(logits.shape)}')
     _check(name, logits, frame, *logits.shape[1:], active)
-    if logits.device.type == 'cuda':
-        out, launched = _launch(name, logits, frame, offset, active, False)
-        launches_fused += launched
-        return out[:, 0], out[:, 1]
-    if logits.device.type == 'cpu':
-        return stability_counts_plain(logits, frame.m_h, frame.m_wt, offset, active)
-    raise ValueError(f'{name}: no kernel for device {logits.device}')
+    with span('kernel.stability_fused'):
+        if logits.device.type == 'cuda':
+            out, launched = _launch(name, logits, frame, offset, active, False)
+            launches_fused += launched
+            return out[:, 0], out[:, 1]
+        if logits.device.type == 'cpu':
+            return stability_counts_plain(logits, frame.m_h, frame.m_wt, offset, active)
+        raise ValueError(f'{name}: no kernel for device {logits.device}')

@@ -33,6 +33,7 @@ import torch
 
 from regda_tpu_torch.ops.kernels import _build
 from regda_tpu_torch.ops.kernels._autograd import grad_through_plain
+from regda_tpu_torch.utils.profiling import span
 
 NP = 8          # padded token count (everything-mode uses 7)
 EPS = 1e-5      # nn.LayerNorm's default, as in the SAM decoder
@@ -299,4 +300,5 @@ def two_way_fused(operands, num_heads: int = 8):
     *acts, w = operands
     if set(w) != set(WKEYS):
         raise ValueError(f'two_way: weights must hold exactly {WKEYS}')
-    return _TwoWay.apply(num_heads, *acts, *(w[k] for k in WKEYS))
+    with span('kernel.two_way'):
+        return _TwoWay.apply(num_heads, *acts, *(w[k] for k in WKEYS))

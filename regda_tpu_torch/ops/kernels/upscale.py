@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from regda_tpu_torch.ops.kernels import _build
 from regda_tpu_torch.ops.kernels._autograd import grad_through_plain
+from regda_tpu_torch.utils.profiling import span
 
 # kernel launches made by `upscale_hyper_masks` in this process
 launches = 0
@@ -207,10 +208,11 @@ def upscale_hyper_masks(src, hyper_in, k1, b1, lnw, lnb, k2, b2,
     chain and gets zero masks (the everything-mode IoU gate). The gated and
     the blocked calls are inference-only; the plain call differentiates
     through `upscale_plain`."""
-    if blocked or active is not None:
-        return _forward(src, hyper_in, k1, b1, lnw, lnb, k2, b2, out_dtype, active,
-                        blocked)
-    return _Upscale.apply(out_dtype, src, hyper_in, k1, b1, lnw, lnb, k2, b2)
+    with span('kernel.upscale'):
+        if blocked or active is not None:
+            return _forward(src, hyper_in, k1, b1, lnw, lnb, k2, b2, out_dtype, active,
+                            blocked)
+        return _Upscale.apply(out_dtype, src, hyper_in, k1, b1, lnw, lnb, k2, b2)
 
 
 def gelu_table_check(device='cuda') -> tuple[torch.Tensor, torch.Tensor]:

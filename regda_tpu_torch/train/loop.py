@@ -53,7 +53,7 @@ from regda_tpu_torch.train.state import TrainState
 from regda_tpu_torch.utils.checkpoint import load_state_dict, save_state_dict, to_host
 from regda_tpu_torch.utils.convert import load_segmenter_state_dict
 from regda_tpu_torch.utils.eval import evaluate
-from regda_tpu_torch.utils.profiling import StepTimer, trace_window
+from regda_tpu_torch.utils.profiling import span, trace_window
 
 
 class Trainer:
@@ -72,8 +72,9 @@ class Trainer:
             raise ValueError('the Trainer runs on the data axis only (n_spatial 1), as the '
                              'JAX Trainer pins it; the stage steps take a spatial group')
         rows(group, batch_size)      # refuses a world size that does not divide it
-        self.timer = StepTimer(items_per_step=batch_size)
+        self.batch_size = batch_size
         self.step_seconds: list[float] = []    # host clock of each run_step
+        self._log_mark = None    # (host clock, steps run) at the previous log line
         # profile 5 steps starting at REGDA_PROFILE_START (default 10) into
         # SNAPSHOT_DIR/trace when enabled via cfg.PROFILE=1 or
         # REGDA_PROFILE=1 (the reference has no tracing; SURVEY.md §5)
@@ -113,11 +114,15 @@ class Trainer:
             elif (i_iter == self._profile_start + 5
                   and self._trace_ctx is not None):
                 self._close_trace()
-        self.timer.start()
-        batch = [batch_tensor(a, self.device)
-                 for a in shard_batch(self.group, *arrays.values())]
-        metrics = self.step_fn(self.state, *batch)
-        self.step_seconds.append(self.timer.stop())
+        t0 = time.perf_counter()
+        if self._log_mark is None:
+            self._log_mark = (t0, len(self.step_seconds))
+        with span('loop.run_step'):
+            with span('loop.upload'):
+                batch = [batch_tensor(a, self.device)
+                         for a in shard_batch(self.group, *arrays.values())]
+            metrics = self.step_fn(self.state, *batch)
+        self.step_seconds.append(time.perf_counter() - t0)
         return metrics
 
     def maybe_log(self, i_iter: int, metrics: dict, extra: str = ''):
@@ -126,9 +131,22 @@ class Trainer:
         if i_iter == 0 or (i_iter + 1) % 50 == 0:
             parts = [f'iter={i_iter + 1}']
             parts += [f'{k}={float(v):.3f}' for k, v in metrics.items()]
-            parts.append(self.timer.summary())
+            parts.append(self._pace())
             lr_line = ', '.join(parts)
             self.logger.info(lr_line + (f', {extra}' if extra else ''))
+
+    def _pace(self) -> str:
+        """ms/step and items/s over the steps since the previous log line
+        (or the first step), by the host clock; the caller's float() of the
+        metrics has waited for the device already."""
+        now, steps = time.perf_counter(), len(self.step_seconds)
+        t, n = self._log_mark or (now, steps)
+        self._log_mark = (now, steps)
+        if steps <= n:
+            return '0.0 ms/step, 0.00 items/s'
+        dt = now - t
+        return (f'{dt / (steps - n) * 1e3:.1f} ms/step, '
+                f'{self.batch_size * (steps - n) / dt:.2f} items/s')
 
     # ------------------------------------------------------ elastic resume
     @property

@@ -46,6 +46,7 @@ from regda_tpu_torch.ops.refine import label_refine
 from regda_tpu_torch.ops.resize import resize_rows
 from regda_tpu_torch.parallel.mesh import DataGroup, average_gradients, data_parallel
 from regda_tpu_torch.train.state import TrainState
+from regda_tpu_torch.utils.profiling import span
 
 
 def _flat(feat):
@@ -94,15 +95,16 @@ def make_stage1_step(*, align_domain: bool = False, ls: str = 'CrossEntropy',
         model = state.model
         model.train()
         with data_parallel(model, group):
-            p_s1, p_s2, feat_s = model(images_s, state.generator)
-            loss_seg, cb_state = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
-            if align_domain:
-                _, _, feat_t = model(images_t, state.generator)
-                loss_domain = L.coral_loss(_flat(feat_s), _flat(feat_t), group=group)
-                loss = loss_seg + loss_domain
-            else:
-                loss_domain = torch.zeros((), device=loss_seg.device)
-                loss = loss_seg
+            with span('step.forward'):
+                p_s1, p_s2, feat_s = model(images_s, state.generator)
+                loss_seg, cb_state = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
+                if align_domain:
+                    _, _, feat_t = model(images_t, state.generator)
+                    loss_domain = L.coral_loss(_flat(feat_s), _flat(feat_t), group=group)
+                    loss = loss_seg + loss_domain
+                else:
+                    loss_domain = torch.zeros((), device=loss_seg.device)
+                    loss = loss_seg
             _update(state, loss, group)
         state.class_freq_s = cb_state
         state.step += 1
@@ -116,10 +118,14 @@ def _update(state: TrainState, loss: torch.Tensor, group: Optional[DataGroup]) -
     """Backward, the gradients averaged over the ranks, the SGD update.
     Runs inside `data_parallel`: a checkpointed block's recompute in the
     backward runs its BatchNorms over the global batch again."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    average_gradients(state.model.parameters(), group)
-    state.optimizer.step()
+    with span('step.backward'):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    if group is not None:
+        with span('step.grad_allreduce'):
+            average_gradients(state.model.parameters(), group)
+    with span('step.optimizer'):
+        state.optimizer.step()
 
 
 @torch.no_grad()
@@ -164,39 +170,41 @@ def make_stage2_step(*, align_domain: bool = True,
             return body(state, model, images_s, label_s, images_t, regs_t)
 
     def body(state: TrainState, model, images_s, label_s, images_t, regs_t):
-        p_s1, p_s2, feat_s = model(images_s, state.generator)
-        with torch.no_grad():
-            label_s_down = downscale_label(label_s, 16, num_classes, ignore_label)
-            oh_s = one_hot_ignore(label_s_down.reshape(-1), num_classes, ignore_label)
-            protos = prototype_update(state.prototypes, _flat(feat_s.detach()),
-                                      oh_s, proto_decay, group)
+        with span('step.forward'):
+            p_s1, p_s2, feat_s = model(images_s, state.generator)
+            with torch.no_grad():
+                label_s_down = downscale_label(label_s, 16, num_classes, ignore_label)
+                oh_s = one_hot_ignore(label_s_down.reshape(-1), num_classes, ignore_label)
+                protos = prototype_update(state.prototypes, _flat(feat_s.detach()),
+                                          oh_s, proto_decay, group)
 
-        p_t1, p_t2, feat_t = model(images_t, state.generator)
-        with torch.no_grad():
-            hw = tuple(images_t.shape[1:3])
-            x1 = resize_rows(p_t1.detach(), hw, group)
-            x2 = resize_rows(p_t2.detach(), hw, group)
-            label_t_soft = (torch.softmax(x1, -1) + torch.softmax(x2, -1)) * 0.5
-            if refine_label:
-                label_t_soft = label_refine(
-                    feat_t.detach(), [p_t1.detach(), p_t2.detach()],
-                    label_t_soft, protos, mode=refine_mode, temp=refine_temp, group=group)
-            label_t_hard = pseudo_selection(label_t_soft, cutoff_top,
-                                            cutoff_low, ignore_label, group)
-            if sam_refine:
-                label_t_hard = homogenize(label_t_hard, regs_t, percent, num_classes,
-                                          ignore_label, MAX_REGIONS, group)
-            label_t = downscale_label(label_t_hard, 16, num_classes, ignore_label)
+            p_t1, p_t2, feat_t = model(images_t, state.generator)
+            with torch.no_grad():
+                hw = tuple(images_t.shape[1:3])
+                x1 = resize_rows(p_t1.detach(), hw, group)
+                x2 = resize_rows(p_t2.detach(), hw, group)
+                label_t_soft = (torch.softmax(x1, -1) + torch.softmax(x2, -1)) * 0.5
+                with span('step.pseudo_label'):
+                    if refine_label:
+                        label_t_soft = label_refine(
+                            feat_t.detach(), [p_t1.detach(), p_t2.detach()],
+                            label_t_soft, protos, mode=refine_mode, temp=refine_temp, group=group)
+                    label_t_hard = pseudo_selection(label_t_soft, cutoff_top,
+                                                    cutoff_low, ignore_label, group)
+                    if sam_refine:
+                        label_t_hard = homogenize(label_t_hard, regs_t, percent, num_classes,
+                                                  ignore_label, MAX_REGIONS, group)
+                    label_t = downscale_label(label_t_hard, 16, num_classes, ignore_label)
 
-        loss_seg, cb_state = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
-        loss_domain = (L.coral_loss(_flat(feat_s), _flat(feat_t), group=group)
-                       if align_domain else torch.zeros((), device=loss_seg.device))
-        loss_align = 0.5 * (
-            L.prototype_contrastive_loss(protos, _flat(feat_s), label_s_down,
-                                         pcl_temp, ignore_label, group)
-            + L.prototype_contrastive_loss(protos, _flat(feat_t), label_t,
-                                           pcl_temp, ignore_label, group))
-        loss = loss_seg + loss_domain + loss_align
+            loss_seg, cb_state = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
+            loss_domain = (L.coral_loss(_flat(feat_s), _flat(feat_t), group=group)
+                           if align_domain else torch.zeros((), device=loss_seg.device))
+            loss_align = 0.5 * (
+                L.prototype_contrastive_loss(protos, _flat(feat_s), label_s_down,
+                                             pcl_temp, ignore_label, group)
+                + L.prototype_contrastive_loss(protos, _flat(feat_t), label_t,
+                                               pcl_temp, ignore_label, group))
+            loss = loss_seg + loss_domain + loss_align
 
         _update(state, loss, group)
         state.prototypes = protos
@@ -270,30 +278,32 @@ def make_stage3_step(*, refine_label: bool = True, refine_mode: str = 'all',
             return body(state, model, images_s, label_s, images_t, label_t_prob, regs_t)
 
     def body(state: TrainState, model, images_s, label_s, images_t, label_t_prob, regs_t):
-        p_s1, p_s2, feat_s = model(images_s, state.generator)
-        p_t1, p_t2, feat_t = model(images_t, state.generator)
-        with torch.no_grad():
-            label_t_soft = label_t_prob
-            if refine_label:
-                # the prototypes from before this step's EMA update
-                label_t_soft = label_refine(
-                    feat_t.detach(), [p_t1.detach(), p_t2.detach()],
-                    label_t_soft, state.prototypes, mode=refine_mode, temp=refine_temp,
-                    group=group)
-            label_t_hard = pseudo_selection(label_t_soft, cutoff_top, cutoff_low,
-                                            ignore_label, group)
-            if sam_refine:
-                label_t_hard = homogenize(label_t_hard, regs_t, percent, num_classes,
-                                          ignore_label, MAX_REGIONS, group)
-            label_s_down = downscale_label(label_s, 16, num_classes, ignore_label)
-            oh_s = one_hot_ignore(label_s_down.reshape(-1), num_classes, ignore_label)
-            protos = prototype_update(state.prototypes, _flat(feat_s.detach()),
-                                      oh_s, proto_decay, group)
+        with span('step.forward'):
+            p_s1, p_s2, feat_s = model(images_s, state.generator)
+            p_t1, p_t2, feat_t = model(images_t, state.generator)
+            with torch.no_grad():
+                with span('step.pseudo_label'):
+                    label_t_soft = label_t_prob
+                    if refine_label:
+                        # the prototypes from before this step's EMA update
+                        label_t_soft = label_refine(
+                            feat_t.detach(), [p_t1.detach(), p_t2.detach()],
+                            label_t_soft, state.prototypes, mode=refine_mode, temp=refine_temp,
+                            group=group)
+                    label_t_hard = pseudo_selection(label_t_soft, cutoff_top, cutoff_low,
+                                                    ignore_label, group)
+                    if sam_refine:
+                        label_t_hard = homogenize(label_t_hard, regs_t, percent, num_classes,
+                                                  ignore_label, MAX_REGIONS, group)
+                label_s_down = downscale_label(label_s, 16, num_classes, ignore_label)
+                oh_s = one_hot_ignore(label_s_down.reshape(-1), num_classes, ignore_label)
+                protos = prototype_update(state.prototypes, _flat(feat_s.detach()),
+                                          oh_s, proto_decay, group)
 
-        loss_source, cb_s = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
-        loss_target, cb_t, ghm = target_loss([p_t1, p_t2], label_t_hard, label_t_soft,
-                                             state.class_freq_t, state.ghm)
-        loss = loss_source + loss_target
+            loss_source, cb_s = src_loss([p_s1, p_s2], label_s, state.class_freq_s)
+            loss_target, cb_t, ghm = target_loss([p_t1, p_t2], label_t_hard, label_t_soft,
+                                                 state.class_freq_t, state.ghm)
+            loss = loss_source + loss_target
 
         _update(state, loss, group)
         state.prototypes = protos
