@@ -32,7 +32,10 @@ Phases (any failure raises, and the exit code is non-zero):
               device's pace, and its kernel's device time from
               torch.profiler) beside the host's microseconds a call.
      check    small-size agreement of the card with the CPU: the ResNet-101
-              eval forward (f32, rtol/atol 1e-4), the resnet18 eval forward
+              eval forward (f32, rtol/atol 1e-4) and its folded + fused
+              forward from a channels-last source (NCHW in f32 with TF32
+              off; its count and device ms of cuDNN layout transposes,
+              which must be none), the resnet18 eval forward
               at output strides 8 and 32 (f32, rtol/atol 1e-4) and a
               ResNet-101 output-stride-8 eval forward of 2 x 512^2 (shapes,
               finiteness, ms), a resnet18 `SegInferencer`
@@ -1297,10 +1300,30 @@ def phase_mask_stats(device) -> dict:
             **times(256, (512, 512)), 'frame_343_m1024': times(1024, (343, 343))}
 
 
+LAYOUT_TRANSPOSES = ('nhwcToNchw', 'nchwToNhwc')
+
+
+def layout_transposes(fn) -> tuple[int, float]:
+    """(kernels, device ms) of cuDNN's layout transposes (nhwcToNchw*,
+    nchwToNhwc*) in one call of fn after a warm-up call, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = [ev for ev in prof.events() if str(ev.device_type).endswith('CUDA')
+             and any(t in ev.name for t in LAYOUT_TRANSPOSES)]
+    return len(found), sum(ev.time_range.elapsed_us() for ev in found) / 1e3
+
+
 def phase_check(device):
     """The card agrees with the CPU on small inputs."""
     import torch
     from regda_tpu_torch.models import build_deeplabv2
+    from regda_tpu_torch.models.fold_bn import folded_model
+    from regda_tpu_torch.models.fused_eval import eval_forward
 
     model = build_deeplabv2('ResNet101', 6, generator=torch.Generator().manual_seed(1)).eval()
     x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(2))
@@ -1310,7 +1333,21 @@ def phase_check(device):
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
         raise AssertionError(f'eval forward card vs CPU: max abs err {err}')
-    print(f'[check] ResNet-101 eval forward 2x64^2 f32, card vs CPU: max abs err {err:.3g}')
+    # the folded forward of a channels-last source, as the CLIs build it: in
+    # float32 with TF32 off the folded model is NCHW, and cuDNN transposes nothing
+    folded = folded_model(model.to(memory_format=torch.channels_last))
+    nchw = folded.encoder.resnet.conv1.weight.is_contiguous()
+    x = x.to(device)
+    with torch.inference_mode():
+        folded_err = _assert_close('folded + fused eval forward card vs CPU',
+                                   eval_forward(folded, x).cpu(), want, rtol=1e-4, atol=1e-4)
+        transposes, transposes_ms = (layout_transposes(lambda: eval_forward(folded, x))
+                                     if x.is_cuda else (0, 0.0))
+    if nchw and transposes:
+        raise AssertionError(f'the NCHW folded forward ran {transposes} cuDNN layout transposes')
+    print(f'[check] ResNet-101 eval forward 2x64^2 f32, card vs CPU: max abs err {err:.3g}; '
+          f'folded + fused ({"NCHW" if nchw else "channels-last"}) {folded_err:.3g}, '
+          f'cuDNN layout transposes {transposes} kernels, {transposes_ms:.3f} ms a forward')
     check_output_strides(device)
 
     # the serve path: SegInferencer (folded, fused) on the card vs the CPU

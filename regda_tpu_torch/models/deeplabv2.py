@@ -13,8 +13,14 @@ The public layout is the JAX package's: NHWC images in; in train mode
 `(pred1, pred2, feat)` NHWC at the output stride, 16 by default (`(pred,
 feat)` with one head); in eval mode (B, H, W, C) probabilities, the
 average of the two heads' softmaxes after one align-corners upsample of
-their concatenation (one head: its upsampled softmax). Inside, the model permutes to NCHW once
-(channels_last memory keeps the permutes free).
+their concatenation (one head: its upsampled softmax). Inside, the model
+permutes to NCHW once. The unfolded model takes the permuted view as it is:
+channels-last memory, the layout the CLIs give its weights. A folded model
+hands its encoder the input in its weights' layout, which
+`fold_bn.folded_model` chooses by precision: NCHW-contiguous for float32
+with TF32 off (cuDNN's FMA-unit kernels are NCHW-native, so no layout
+transposes around the convs), channels-last for bf16, f16 or TF32 (the
+tensor-core kernels are NHWC-native).
 
 `dtype` works as in the JAX package: parameters stay float32, and the
 forward computes in `dtype` (the input is cast at the model boundary).
@@ -98,8 +104,14 @@ class DeeplabV2(nn.Module):
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, 3) -> the encoder's NCHW map at the output stride in
-        `dtype`, instance-normalized where the model says so."""
-        feat = self.encoder(x.to(self.dtype).permute(0, 3, 1, 2))
+        `dtype`, instance-normalized where the model says so. A folded model
+        takes its input in the stem weight's layout (module docstring)."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        if self.folded:
+            x = x.contiguous(memory_format=torch.contiguous_format
+                             if self.encoder.resnet.conv1.weight.is_contiguous()
+                             else torch.channels_last)
+        feat = self.encoder(x)
         return instance_norm(feat, group=self.data_group) if self.is_ins_norm else feat
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):

@@ -66,16 +66,28 @@ def fold_batchnorm(state: Mapping[str, torch.Tensor],
     return out
 
 
+def folded_memory_format(dtype: torch.dtype) -> torch.memory_format:
+    """The layout of a folded model that computes in `dtype`, by the
+    precision its convolutions take on the card: float32 with cuDNN's TF32
+    off runs on the FMA units, whose cuDNN kernels read and write NCHW, so
+    such a model is NCHW-contiguous (channels-last tensors would be
+    transposed in and out of every conv); bf16, f16 or TF32 run on the
+    tensor cores, whose kernels are NHWC-native: channels-last. The TF32
+    flag is read when the model is built."""
+    if dtype == torch.float32 and not torch.backends.cudnn.allow_tf32:
+        return torch.contiguous_format
+    return torch.channels_last
+
+
 def folded_model(model: DeeplabV2) -> DeeplabV2:
-    """A `folded=True` copy of `model` in eval mode, on its device and in
-    its memory format, at its output stride, carrying
-    `fold_batchnorm(model.state_dict())`."""
+    """A `folded=True` copy of `model` in eval mode, on its device, at its
+    output stride, carrying `fold_batchnorm(model.state_dict())`, in the
+    layout `folded_memory_format` gives its dtype, whatever `model`'s own
+    (its `features` hands the encoder its input in that layout)."""
     folded = DeeplabV2(model.resnet_type, model.num_classes, model.multi_layer,
                        model.use_ppm, model.is_ins_norm, model.fc_dim, folded=True,
                        dtype=model.dtype, output_stride=model.output_stride)
-    stem = model.encoder.resnet.conv1.weight
-    fmt = (torch.channels_last if stem.is_contiguous(memory_format=torch.channels_last)
-           else torch.contiguous_format)
-    folded = folded.to(stem.device, memory_format=fmt)
+    folded = folded.to(model.encoder.resnet.conv1.weight.device,
+                       memory_format=folded_memory_format(model.dtype))
     folded.load_state_dict(fold_batchnorm(model.state_dict()))
     return folded.eval()

@@ -87,10 +87,13 @@ class PPMBilinear(nn.Module):
         """The pyramid: each branch's pooled map (`self.pooled(x)`, or given
         by a head that pools the same map) through its conv, norm and ReLU,
         upsampled back to x's size (on the spatial axis, x's rows of the
-        whole map's upsample)."""
+        whole map's upsample). The upsample reads the branch channels-last,
+        which takes PyTorch's NHWC kernel: an NCHW branch (a folded float32
+        model's, models/fold_bn.py) is copied, a channels-last one is not."""
         hw = tuple(x.shape[-2:])
         pooled = self.pooled(x) if pooled is None else pooled
-        return [resize_rows_nchw(branch[1:](p), hw, False, self.data_group, whole=True)
+        return [resize_rows_nchw(branch[1:](p).contiguous(memory_format=torch.channels_last),
+                                 hw, False, self.data_group, whole=True)
                 for branch, p in zip(self.ppm, pooled)]
 
     def forward(self, x, generator: Optional[torch.Generator] = None):

@@ -751,3 +751,62 @@ def test_folded_fused_forward_matches_stock_bf16(device):
     want = stock.predict_probs(images, slide=False)
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= 20 * 2.0 ** -8 * np.abs(want).max()
+
+
+_LAYOUT_TRANSPOSES = ('nhwcToNchw', 'nchwToNhwc')
+_FUSED_CONVS = ('aten::cudnn_convolution_relu', 'aten::cudnn_convolution_add_relu')
+# the elementwise kernels of an add and a ReLU: a fused conv call whose bias,
+# residual or ReLU fell out of cuDNN's epilogue would launch some
+_ELEMENTWISE = ('CUDAFunctor_add', 'clamp')
+
+
+def _launched(event) -> list:
+    """The device kernels launched under a profiled operator, its children's
+    included."""
+    return [k.name for k in event.kernels] + [
+        name for child in event.cpu_children for name in _launched(child)]
+
+
+def _profiled_forward(model, x):
+    """(probs, the device kernels' names, the fused cuDNN conv calls, the add
+    and ReLU kernels launched inside them) of one eval forward."""
+    from torch.profiler import ProfilerActivity, profile
+    from regda_tpu_torch.models.fused_eval import eval_forward
+    with torch.inference_mode():
+        eval_forward(model, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            probs = eval_forward(model, x)
+            torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [ev.name for ev in events if str(ev.device_type).endswith('CUDA')]
+    fused = [ev for ev in events if ev.name in _FUSED_CONVS]
+    unfused = [k for ev in fused for k in _launched(ev) if any(n in k for n in _ELEMENTWISE)]
+    return probs, kernels, len(fused), unfused
+
+
+def test_f32_folded_forward_runs_no_layout_transposes(device, no_tf32):
+    """ResNet-101 at 2 x 256^2, f32, TF32 off, from a channels-last source
+    (as the CLIs build it): the folded model is NCHW and its eval forward
+    runs no cuDNN layout transpose, as many fused cuDNN conv calls as the
+    channels-last folded forward, none of them launching an add or a ReLU
+    of its own, and equals it."""
+    import copy
+    from regda_tpu_torch.entry import seed_bn_statistics
+    from regda_tpu_torch.models import build_deeplabv2
+    from regda_tpu_torch.models.fold_bn import folded_model
+    g = torch.Generator().manual_seed(11)
+    model = build_deeplabv2('ResNet101', 6, generator=g)
+    seed_bn_statistics(model, g)
+    folded = folded_model(model.to(device, memory_format=torch.channels_last).eval())
+    assert all(p.is_contiguous() for p in folded.parameters())
+    channels_last = copy.deepcopy(folded).to(memory_format=torch.channels_last)
+    x = torch.randn(2, 256, 256, 3, generator=g).to(device)
+    got, kernels, fused, unfused = _profiled_forward(folded, x)
+    want, cl_kernels, cl_fused, cl_unfused = _profiled_forward(channels_last, x)
+    transposes = [k for k in kernels if any(t in k for t in _LAYOUT_TRANSPOSES)]
+    cl_transposes = [k for k in cl_kernels if any(t in k for t in _LAYOUT_TRANSPOSES)]
+    assert transposes == [] and len(cl_transposes) > 0, (transposes, len(cl_transposes))
+    assert fused == cl_fused > 100
+    assert unfused == [] and cl_unfused == [], (unfused, cl_unfused)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

@@ -19,6 +19,7 @@ and the JAX float32 logits are 3.1e-4 from that float64 run (the port's
 4e-5), so that variant's train forward is held at atol 4e-4.
 """
 
+import copy
 import functools
 import sys
 
@@ -200,6 +201,51 @@ def test_folded_and_fused_eval_match_jax(kind):
     assert got.shape == (2, SIZE, SIZE, C)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, stock, rtol=RTOL, atol=ATOL)
+
+
+def _as(model, memory_format):
+    return copy.deepcopy(model).to(memory_format=memory_format)
+
+
+@pytest.mark.parametrize('dtype,tf32,source,want', [
+    (torch.float32, False, torch.channels_last, torch.contiguous_format),
+    (torch.float32, False, torch.contiguous_format, torch.contiguous_format),
+    (torch.float32, True, torch.contiguous_format, torch.channels_last),
+    (torch.bfloat16, False, torch.contiguous_format, torch.channels_last),
+], ids=['f32-from-channels-last', 'f32-from-nchw', 'tf32-from-nchw', 'bf16-from-nchw'])
+def test_folded_model_layout_follows_the_precision(monkeypatch, dtype, tf32, source, want):
+    """float32 with cuDNN's TF32 off folds into NCHW-contiguous weights,
+    bf16 or TF32 into channels-last ones, whatever the source's layout; the
+    folded model's encoder gets its input in that layout."""
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', tf32)
+    model = build_deeplabv2('resnet18', num_classes=C, dtype=dtype)
+    model.load_state_dict(_pair()[2].state_dict())
+    folded = folded_model(_as(model, source))
+    convs = [p for p in folded.parameters() if p.dim() == 4]
+    assert len(convs) > 20 and all(p.is_contiguous(memory_format=want) for p in convs)
+    seen = []
+    folded.encoder.register_forward_pre_hook(
+        lambda _, args: seen.append(args[0].is_contiguous(memory_format=want)))
+    with torch.no_grad():
+        out = folded(torch.from_numpy(_image(7)))
+    assert seen == [True] and out.shape == (2, SIZE, SIZE, C)
+
+
+@pytest.mark.parametrize('kind', ['folded', 'fused'])
+def test_nchw_folded_eval_of_a_channels_last_source_matches_jax(monkeypatch, kind):
+    """The f32 folded model of a channels-last source, with TF32 off (the
+    CLIs' setting), is NCHW and still gives the JAX package's folded and
+    fused forwards."""
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    jmodel, variables, tmodel = _pair()
+    x = _image(4)
+    want = np.asarray(_jax_eval(jmodel, variables, jnp.asarray(x), kind))
+    folded = folded_model(_as(tmodel, torch.channels_last))
+    assert folded.encoder.resnet.conv1.weight.is_contiguous()
+    with torch.no_grad():
+        t = torch.from_numpy(x)
+        got = (folded(t) if kind == 'folded' else fused_dual_ppm_eval(folded, t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 VARIANTS = {
