@@ -7,6 +7,16 @@ generation (regda/gast/pseudo_generation.py:96-155). The deployed forward is
 the BN-folded model (models/fold_bn.py) with both PPM heads' shared conv
 fused (models/fused_eval.py).
 
+The engines of the 3x3 stride-1 convolutions are chosen by measurement,
+not by cuDNN's heuristics, which send some of them in float32 to a slower
+FFT engine: the first forward of each input signature an inferencer meets
+(span `infer.tune`) runs each such convolution with
+`torch.backends.cudnn.benchmark` on, so cuDNN times its candidates and
+caches the fastest plan, which later forwards of the signature reuse with
+the flag as the caller set it. The other convolutions keep their
+heuristic engines, which measured as fast as the timed ones, and skip the
+set-up their timing would cost. `tuned` counts the signatures.
+
 The numpy methods keep the JAX package's contract, (B, H, W, 3) float32
 normalized images in and numpy out (the images may also be a float32
 tensor on the model's device, as a DeviceEvalSet gives them);
@@ -24,12 +34,14 @@ and offline pseudo-labelling run through it.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from regda_tpu_torch.datasets.device_data import batch_tensor
 from regda_tpu_torch.models.deeplabv2 import DeeplabV2
@@ -47,6 +59,40 @@ from regda_tpu_torch.utils.profiling import span
 MAX_BATCH_PIXELS = 64 * 512 * 512
 
 MULTISCALE_SCALES = (0.75, 1.0, 1.25, 1.5, 1.75, 2.0)
+
+
+# a forward's convolutions as the port calls them, each with the place of
+# its `stride` argument
+_CONVOLUTIONS = {torch.nn.functional.conv2d: 3, torch.cudnn_convolution_relu: 3,
+                 torch.cudnn_convolution_add_relu: 5}
+
+
+def _is_3x3_stride_1(func, args, kwargs) -> bool:
+    at = _CONVOLUTIONS[func]
+    stride = args[at] if len(args) > at else kwargs.get('stride', 1)
+    return (tuple(args[1].shape[-2:]) == (3, 3)
+            and all(s == 1 for s in ((stride,) if isinstance(stride, int) else stride)))
+
+
+class _MeasuredEngines(TorchFunctionMode):
+    """Inside, cuDNN chooses the engine of each 3x3 stride-1 convolution by
+    timing its candidates, and caches the fastest plan: `benchmark` is on
+    around that call alone and restored after it. Only that flag is set:
+    `torch.backends.cudnn.flags` would also set every other cuDNN flag to its
+    own defaults (cuDNN off, TF32 on). (A function mode, not a dispatch mode:
+    the first op under a dispatch mode imports sympy and much of torch's
+    compiler, seconds of set-up.)"""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in _CONVOLUTIONS or not _is_3x3_stride_1(func, args, kwargs):
+            return func(*args, **kwargs)
+        saved = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            return func(*args, **kwargs)
+        finally:
+            torch.backends.cudnn.benchmark = saved
 
 
 class SegInferencer:
@@ -71,6 +117,13 @@ class SegInferencer:
         self.tile = tile
         self.stride = stride
         self.group = group
+        self._signatures = set()
+
+    @property
+    def tuned(self) -> int:
+        """The input signatures whose forward chose cuDNN's engines by
+        measurement."""
+        return len(self._signatures)
 
     def update_variables(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Load new (unfolded) weights, e.g. after a training interval;
@@ -79,11 +132,23 @@ class SegInferencer:
             state_dict = fold_batchnorm(state_dict)
         self.model.load_state_dict(state_dict)
 
+    def _forward(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """fn(x), a forward of the model; under measured engines the first
+        time this inferencer meets x's shape, dtype and layout (strides)."""
+        signature = (tuple(x.shape), x.dtype, x.stride())
+        if signature in self._signatures:
+            return fn(x)
+        with span('infer.tune'), _MeasuredEngines():
+            out = fn(x)
+        self._signatures.add(signature)
+        return out
+
     def _apply_probs(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
         chunks = math.ceil(n * x.shape[1] * x.shape[2] / MAX_BATCH_PIXELS)
         size = math.ceil(n / chunks)
-        return torch.cat([eval_forward(self.model, x[i:i + size], self.fused_ppm).float()
+        forward = functools.partial(eval_forward, self.model, fused=self.fused_ppm)
+        return torch.cat([self._forward(forward, x[i:i + size]).float()
                           for i in range(0, n, size)])
 
     def _sharded(self, fn, images: torch.Tensor) -> torch.Tensor:
@@ -155,11 +220,12 @@ class SegInferencer:
     def _multiscale(self, images: torch.Tensor, scales, tta: bool) -> torch.Tensor:
         h, w = images.shape[1:3]
         total = None
+        forward = functools.partial(self._forward, self.model)
         with span('infer.forward'):
             for scale in scales:
                 scaled = resize_bilinear_align_corners(
                     images, (int(round(h * scale)), int(round(w * scale))))
-                probs = tta_apply(self.model, scaled) if tta else self.model(scaled)
+                probs = tta_apply(forward, scaled) if tta else forward(scaled)
                 p = resize_bilinear_align_corners(probs.float(), (h, w))
                 total = p if total is None else total + p
             return total / len(scales)

@@ -9,9 +9,9 @@ profiler is taking, on the same clock as the device's kernels and copies.
 The spans, named `<layer>.<what>`: `loop.run_step` and `loop.upload`
 (train/loop.py), `step.forward`, `step.pseudo_label`, `step.backward`,
 `step.grad_allreduce` and `step.optimizer` (train/steps.py),
-`infer.predict`, `infer.upload`, `infer.forward` and `infer.download`
-(infer.py), `sam.<stage>` (models/sam/auto.py) and `kernel.<name>` at each
-public wrapper of ops/kernels/.
+`infer.predict`, `infer.upload`, `infer.forward`, `infer.tune` and
+`infer.download` (infer.py), `sam.<stage>` (models/sam/auto.py) and
+`kernel.<name>` at each public wrapper of ops/kernels/.
 """
 
 from __future__ import annotations

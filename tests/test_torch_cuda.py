@@ -810,3 +810,46 @@ def test_f32_folded_forward_runs_no_layout_transposes(device, no_tf32):
     assert fused == cl_fused > 100
     assert unfused == [] and cl_unfused == [], (unfused, cl_unfused)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# names of cuDNN's FFT convolution kernels (`DSE::vector_fft`,
+# `regular_fft_pad`, `fft2d_r2c_32x32`, the `cf32` complex GEMM)
+_FFT_KERNELS = ('fft', 'DSE::', 'cf32')
+_CUDNN_FLAGS = ('enabled', 'benchmark', 'deterministic', 'allow_tf32')
+
+
+def test_f32_folded_eval_takes_measured_engines_not_fft(device, no_tf32):
+    """ResNet-101, f32, TF32 off, one 512^2 tile with slide and TTA: one
+    batch-8 forward of the 8 views, some of whose 3x3 stride-1 convs cuDNN's
+    heuristics send to its FFT engine. The inferencer's first forward
+    chooses their engines by measurement; a second forward of the tile, with
+    the benchmark flag off, reuses those plans: no FFT kernel, no
+    `infer.tune` span, and cuDNN's flags as they were. Labels equal the CPU
+    inferencer's where its top two probabilities are 1e-4 apart."""
+    import copy
+    from torch.profiler import ProfilerActivity, profile
+    from regda_tpu_torch.entry import seed_bn_statistics
+    from regda_tpu_torch.infer import SegInferencer
+    from regda_tpu_torch.models import build_deeplabv2
+    g = torch.Generator().manual_seed(13)
+    model = build_deeplabv2('ResNet101', 6, generator=g)
+    seed_bn_statistics(model, g)
+    image = torch.randn(1, 512, 512, 3, generator=g).numpy()
+    card = SegInferencer(copy.deepcopy(model).to(device, memory_format=torch.channels_last), 6)
+    flags = {k: getattr(torch.backends.cudnn, k) for k in _CUDNN_FLAGS}
+    card.predict_labels(image, slide=True, tta=True)
+    assert card.tuned == 1
+    assert {k: getattr(torch.backends.cudnn, k) for k in _CUDNN_FLAGS} == flags
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        labels = card.predict_labels(image, slide=True, tta=True)
+    events = prof.events()
+    kernels = [ev.name for ev in events if str(ev.device_type).endswith('CUDA')]
+    assert len(kernels) > 100
+    fft = [k for k in kernels if any(n in k for n in _FFT_KERNELS)]
+    assert fft == [], sorted(set(fft))
+    assert not [ev for ev in events if ev.name == 'infer.tune'] and card.tuned == 1
+    want = SegInferencer(model.eval(), 6).predict_probs(image, slide=True, tta=True)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 1e-4
+    assert clear.mean() > 0.9, clear.mean()
+    np.testing.assert_array_equal(labels[clear], want.argmax(-1)[clear])

@@ -1,7 +1,8 @@
 """The port's serve path against the JAX package on the CPU: tiling, TTA,
 sliding-window accumulation, BatchNorm folding, the fused dual-PPM forward,
-the segmenter's variants, `SegInferencer`, the pixel metrics and the
-configs.
+the segmenter's variants, `SegInferencer` (its first forward of each input
+signature runs the 3x3 stride-1 convolutions under cuDNN's benchmark flag:
+counted, and the flags left as found), the pixel metrics and the configs.
 
 Models are resnet18 at 64 px or less, float32, with the JAX model's
 variables (non-trivial BN scales, biases and running statistics) carried
@@ -26,6 +27,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 import flax.linen as nn
 import jax
@@ -43,7 +45,8 @@ from regda_tpu.utils.metrics import PixelMetricIgnore as JaxMetric
 from regda_tpu_torch.infer import SegInferencer
 from regda_tpu_torch.models import build_deeplabv2
 from regda_tpu_torch.models.fold_bn import fold_batchnorm, folded_model
-from regda_tpu_torch.models.fused_eval import fused_dual_ppm_eval, supports_fused_heads
+from regda_tpu_torch.models.fused_eval import (eval_forward, fused_dual_ppm_eval,
+                                               supports_fused_heads)
 from regda_tpu_torch.models.heads import Dropout2d
 from regda_tpu_torch.ops.slide import slide_inference, tile_positions
 from regda_tpu_torch.ops.tta import tta_apply
@@ -352,6 +355,104 @@ def test_seg_inferencer_reads_its_switches_once(monkeypatch):
     monkeypatch.delenv('REGDA_NO_FUSED_PPM')
     assert not inf.fused_ppm    # the forward does not read the environment again
     assert SegInferencer(tmodel, C).fused_ppm
+
+
+# ---- cuDNN's engines chosen by measurement -----------------------------------
+
+_CUDNN_FLAGS = ('enabled', 'benchmark', 'deterministic', 'allow_tf32')
+
+
+def _cudnn_flags() -> dict:
+    return {k: getattr(torch.backends.cudnn, k) for k in _CUDNN_FLAGS}
+
+
+def _fresh_inferencer():
+    return SegInferencer(_pair()[2], C, tile=64, stride=32)
+
+
+class _ConvFlags(TorchFunctionMode):
+    """(whether it is 3x3 at stride 1, the benchmark flag it ran under) of
+    each F.conv2d called inside; with `fail`, the first one that runs under
+    the flag raises instead."""
+
+    def __init__(self, fail: bool = False):
+        super().__init__()
+        self.fail, self.seen = fail, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.nn.functional.conv2d:
+            stride = tuple(args[3]) if len(args) > 3 else (1,)
+            flag = torch.backends.cudnn.benchmark
+            if self.fail and flag:
+                raise RuntimeError('a measured convolution failed')
+            self.seen.append((args[1].shape[-2:] == (3, 3) and set(stride) == {1}, flag))
+        return func(*args, **(kwargs or {}))
+
+
+def test_seg_inferencer_tunes_once_a_signature():
+    """The first forward of each input shape, dtype and layout runs its 3x3
+    stride-1 convolutions, and no other, with cuDNN's benchmark flag on; a
+    repeat runs them all with the flag as the caller set it."""
+    inf = _fresh_inferencer()
+    x = torch.from_numpy(_image(11, b=1))
+    nchw_strided = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    cases = [(x, 1, True), (x, 1, False), (x.clone(), 1, False), (x[:, :48, :48], 2, True),
+             (x.double(), 3, True), (nchw_strided, 4, True), (nchw_strided, 4, False),
+             (x, 4, False)]
+    for i, (images, tuned, tunes) in enumerate(cases):
+        with _ConvFlags() as convs:
+            inf.probs_tensor(images, slide=False)
+        assert inf.tuned == tuned, i
+        assert {three for three, _ in convs.seen} == {True, False}
+        assert all(flag == (tunes and three) for three, flag in convs.seen), (i, convs.seen)
+        assert not torch.backends.cudnn.benchmark
+
+
+def test_seg_inferencer_tunes_each_scale_once():
+    inf = _fresh_inferencer()
+    x = _image(12, 48, 40, b=1)
+    once = inf.predict_multiscale(x, scales=(0.75, 1.5))
+    assert inf.tuned == 2
+    np.testing.assert_array_equal(inf.predict_multiscale(x, scales=(0.75, 1.5)), once)
+    assert inf.tuned == 2
+
+
+def test_tuned_labels_equal_the_untuned_forwards():
+    """predict_labels, slide and TTA, tuned and then repeated, against the
+    argmax of the same slide and TTA over the bare eval forward."""
+    inf = _fresh_inferencer()
+    x = _image(13, 96, 80, b=1)
+    tuned = inf.predict_labels(x, slide=True, tta=True)
+    assert inf.tuned == 1
+    with torch.inference_mode():
+        probs = slide_inference(lambda v: eval_forward(inf.model, v).float(),
+                                torch.from_numpy(x), C, 64, 32, tta=True)
+    np.testing.assert_array_equal(tuned, probs.argmax(-1).numpy())
+    np.testing.assert_array_equal(inf.predict_labels(x, slide=True, tta=True), tuned)
+    assert inf.tuned == 1
+
+
+@pytest.mark.parametrize('flags', [
+    {}, {'allow_tf32': False}, {'benchmark': True, 'deterministic': True},
+    {'enabled': False, 'allow_tf32': False}])
+def test_tuned_forward_leaves_cudnn_flags_as_it_found_them(monkeypatch, flags):
+    """torch's defaults; TF32 off, as the port computes float32; and
+    others. (`torch.backends.cudnn.flags` would have turned cuDNN off and
+    TF32 on.)"""
+    for k, v in flags.items():
+        monkeypatch.setattr(torch.backends.cudnn, k, v)
+    before = _cudnn_flags()
+    inf = _fresh_inferencer()
+    inf.predict_labels(_image(14, b=1), slide=False)
+    assert inf.tuned == 1 and _cudnn_flags() == before
+
+
+def test_a_failing_tuned_forward_restores_the_flag_and_tunes_nothing():
+    inf = _fresh_inferencer()
+    before = _cudnn_flags()
+    with pytest.raises(RuntimeError, match='a measured convolution failed'), _ConvFlags(True):
+        inf.probs_tensor(torch.from_numpy(_image(15, b=1)), slide=False)
+    assert inf.tuned == 0 and _cudnn_flags() == before
 
 
 # ---- metrics and configs -----------------------------------------------------

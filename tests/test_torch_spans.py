@@ -179,6 +179,17 @@ def test_inferencer_spans(entry, tmp_path):
                                            'infer.forward', 'infer.download')
     assert all(_within(s, predict) for s in (upload, fwd, download))
     assert upload[1] <= fwd[0] and fwd[1] <= download[0]
+    # a new inferencer tunes its one signature, or one a scale
+    tunes = spans['infer.tune']
+    assert len(tunes) == (2 if entry == 'predict_multiscale' else 1)
+    assert all(_within(t, fwd) for t in tunes)
+
+
+def test_a_repeated_signature_opens_no_tune_span():
+    inf, images = _inferencer()
+    inf.predict_labels(images, slide=True, tta=True)
+    spans = _spans(lambda: inf.predict_labels(images, slide=True, tta=True))
+    assert spans['infer.forward'] and not spans['infer.tune'] and inf.tuned == 1
 
 
 @pytest.mark.parametrize('blocked_masks', [True, False])
